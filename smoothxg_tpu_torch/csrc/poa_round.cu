@@ -53,9 +53,9 @@
 // Predecessor slots past a node's in-degree repeat its first predecessor
 // (the packing contract); the fill stops at the first repeat.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC (smoothxg_tpu_torch/ops/_build.py), in one
-//        library with poa_win.cu.
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c -Xcompiler
+//        -fPIC, one process per source, then one link into one library
+//        with the other kernels (smoothxg_tpu_torch/ops/_build.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>

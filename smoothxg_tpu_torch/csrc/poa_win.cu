@@ -31,34 +31,25 @@
 // Parallelism across POA blocks comes from the grid: one thread block per
 // POA block, so a launch needs a batch of >= 132 blocks to fill the SMs.
 // Scores are int32 with the floor NEG = -2^30 (no int16 clamp), and the DP
-// planes (H, Hq, E1, E2: 16 bytes per cell) live in device memory.
+// planes (H, Hq, E1, E2: 16 bytes per cell) live in device memory.  The
+// graph side (tables, seed, walk, rank pass, threading, export) is
+// poa_graph.cuh's, shared with poa_code.cu and poa_stacked.cu.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC (smoothxg_tpu_torch/ops/_build.py).
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c -Xcompiler
+//        -fPIC, one process per source, then one link into a shared
+//        library (smoothxg_tpu_torch/ops/_build.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>
 
 #include "poa_common.cuh"
+#include "poa_graph.cuh"
 
 namespace {
 
-constexpr int RING_CAP = 8;
-
-// Per-block scratch, int32 words (v1 = VW + 1).  Mirrored by
-// WinCaps.scratch_words in ops/poa_win.py.
-//   node tables  base pos ring nxt npred nsucc      6 * v1
-//                preds                              pcap * v1
-//   row tables   node np lo hi mr Mr                6 * v1
-//                pred rows                          pcap * v1
-//   target (LW), ring splices (2 * LW)              3 * LW
-//   DP planes    H Hq E1 E2                          4 * v1 * W
-struct Blk {
-    int32_t *base, *pos, *ring, *nxt, *npred, *nsucc, *preds;
-    int32_t *rnode, *rnp, *rlo, *rhi, *rmr, *rMr, *rpreds;
-    int32_t *target, *spl;
-    int32_t *H, *Hq, *E1, *E2;
-};
+// Per-block scratch: the graph tables (poa_graph.cuh), then the DP planes
+// H Hq E1 E2, each (VW + 1) x W int32 — mirrored by WinCaps.scratch_words
+// in ops/poa_win.py.
 
 __device__ __forceinline__ int32_t rd(const int32_t* plane, int W,
                                       const int32_t* rlo, int row, int j) {
@@ -81,23 +72,13 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
     const int b = blockIdx.x;
     const int tid = threadIdx.x;
     const size_t v1 = (size_t)VW + 1;
-    const size_t words = (12 + 2 * (size_t)pcap) * v1 + 3 * (size_t)LW
-        + 4 * v1 * (size_t)W;
-    int32_t* sc = scratch + (size_t)b * words;
-    Blk k;
-    k.base = sc;          k.pos = sc + v1;       k.ring = sc + 2 * v1;
-    k.nxt = sc + 3 * v1;  k.npred = sc + 4 * v1; k.nsucc = sc + 5 * v1;
-    k.preds = sc + 6 * v1;
-    int32_t* rt = sc + (6 + pcap) * v1;
-    k.rnode = rt;         k.rnp = rt + v1;       k.rlo = rt + 2 * v1;
-    k.rhi = rt + 3 * v1;  k.rmr = rt + 4 * v1;   k.rMr = rt + 5 * v1;
-    k.rpreds = rt + 6 * v1;
-    k.target = sc + (12 + 2 * pcap) * v1;
-    k.spl = k.target + LW;
-    k.H = k.spl + 2 * (size_t)LW;
-    k.Hq = k.H + v1 * W;
-    k.E1 = k.Hq + v1 * W;
-    k.E2 = k.E1 + v1 * W;
+    const size_t plane = v1 * (size_t)W;
+    int32_t* sc = scratch + (size_t)b * (graph_words(v1, pcap, LW) + 4 * plane);
+    Graph k;
+    int32_t* H = graph_carve(k, sc, v1, pcap, LW);
+    int32_t* Hq = H + plane;
+    int32_t* E1 = Hq + plane;
+    int32_t* E2 = E1 + plane;
 
     const int R = nseq[b];
     const int32_t* lens = slen + (size_t)b * RW;
@@ -135,19 +116,9 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
                 h = max(-(g + (jl - 1) * e), -(q + (jl - 1) * c));
                 hq = NEG;
             }
-            k.H[jl] = h; k.Hq[jl] = hq; k.E1[jl] = NEG; k.E2[jl] = NEG;
+            H[jl] = h; Hq[jl] = hq; E1[jl] = NEG; E2[jl] = NEG;
         }
-        // seed: sequence 0 becomes a chain
-        for (int v = tid; v < L0; v += NT) {
-            k.base[v] = bseqs[v];
-            k.pos[v] = v;
-            k.ring[v] = v;
-            k.nxt[v] = v < L0 - 1 ? v + 1 : -1;
-            k.npred[v] = v >= 1 ? 1 : 0;
-            k.preds[(size_t)v * pcap] = v - 1;
-            k.nsucc[v] = v < L0 - 1 ? 1 : 0;
-            bpaths[v] = v;
-        }
+        seed_par(k, bseqs, L0, bpaths, tid, NT);
     }
     __syncthreads();
 
@@ -159,46 +130,14 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
             k.target[j] = -2;
         }
         // ---- topological walk: rows in list order (thread 0) ----
-        if (tid == 0) {
-            int i = 0;
-            for (int v = s_head; v >= 0; v = k.nxt[v]) {
-                k.pos[v] = i;
-                k.rnode[++i] = v;
-            }
-            s_V = i;
-        }
+        if (tid == 0) s_V = topo_walk(k, s_head);
         __syncthreads();
         const int V = s_V;
-        // predecessor rows of every row (parallel)
-        for (int i = 1 + tid; i <= V; i += NT) {
-            int v = k.rnode[i];
-            int np = k.npred[v];
-            k.rnp[i] = np;
-            for (int p = 0; p < np; ++p)
-                k.rpreds[(size_t)i * pcap + p] =
-                    k.pos[k.preds[(size_t)v * pcap + p]] + 1;
-        }
+        row_preds_par(k, V, tid, NT);
         __syncthreads();
         if (banded) {
             // min/max topological rank per row (abPOA band anchor)
-            if (tid == 0) {
-                int D = 0;
-                for (int i = 1; i <= V; ++i) {
-                    int np = k.rnp[i], mr = 1, Mr = 1;
-                    if (np > 0) {
-                        int lo = 1 << 28, hi = 0;
-                        for (int p = 0; p < np; ++p) {
-                            int u = k.rpreds[(size_t)i * pcap + p];
-                            lo = min(lo, k.rmr[u]);
-                            hi = max(hi, k.rMr[u]);
-                        }
-                        mr = lo + 1; Mr = hi + 1;
-                    }
-                    k.rmr[i] = mr; k.rMr[i] = Mr;
-                    D = max(D, Mr);
-                }
-                s_D = D;
-            }
+            if (tid == 0) s_D = band_ranks(k, V);
             __syncthreads();
             const int w = wb + (wfm * L) / 1000;
             const int adj_l = max(0, s_D - L), adj_r = max(0, L - s_D);
@@ -232,10 +171,10 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
             int carry1 = NEG + e * max(c0 - 1, 0);
             int carry2 = NEG + c * max(c0 - 1, 0);
             int rowbest = INT_MIN;
-            int32_t* Hi = k.H + (size_t)i * W;
-            int32_t* Hqi = k.Hq + (size_t)i * W;
-            int32_t* E1i = k.E1 + (size_t)i * W;
-            int32_t* E2i = k.E2 + (size_t)i * W;
+            int32_t* Hi = H + (size_t)i * W;
+            int32_t* Hqi = Hq + (size_t)i * W;
+            int32_t* E1i = E1 + (size_t)i * W;
+            int32_t* E2i = E2 + (size_t)i * W;
             for (int t0 = c0; t0 <= c1; t0 += TILE) {
                 const int jb = t0 + tid * CPT;
                 int hp[CPT + 1], hq[CPT];
@@ -249,13 +188,13 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
                         for (int x = 0; x <= CPT; ++x) {
                             int jl = jb - 1 + x - poff[p];
                             if (jb - 1 + x <= c1 && jl >= 0 && jl < W)
-                                hp[x] = max(hp[x], k.H[rb + jl]);
+                                hp[x] = max(hp[x], H[rb + jl]);
                         }
                         for (int x = 0; x < CPT; ++x) {
                             int jl = jb + x - poff[p];
                             if (jb + x <= c1 && jl >= 0 && jl < W) {
-                                x1[x] = max(x1[x], k.E1[rb + jl]);
-                                x2[x] = max(x2[x], k.E2[rb + jl]);
+                                x1[x] = max(x1[x], E1[rb + jl]);
+                                x2[x] = max(x2[x], E2[rb + jl]);
                             }
                         }
                     }
@@ -315,7 +254,7 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
             int hb = NEG - 1, hr = 0;
             for (int i = 1 + tid; i <= V; i += NT) {
                 if (k.nsucc[k.rnode[i]] != 0) continue;
-                int h = rd(k.H, W, k.rlo, i, L);
+                int h = rd(H, W, k.rlo, i, L);
                 if (h > hb) { hb = h; hr = i; }
             }
             if (hr == 0) hr = INT_MAX;           // no sink in this thread
@@ -326,14 +265,14 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
 
         if (tid == 0 && have) {
             if (local) {
-                const int32_t* row = k.H + (size_t)ei * W;
+                const int32_t* row = H + (size_t)ei * W;
                 int jl = 0;
                 while (row[jl] != tbest) ++jl;
                 ej = k.rlo[ei] + jl;
             }
             // ---- traceback by value re-derivation (thread 0) ----
             int i = ei, j = ej, chan = 0;     // 0 H, 1 Hq, 2 E1, 3 E2
-            int val = rd(k.H, W, k.rlo, i, j);
+            int val = rd(H, W, k.rlo, i, j);
             while (true) {
                 if (chan <= 1) {
                     if (local && val == 0) break;
@@ -341,7 +280,7 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
                         if (j == 0) break;
                         k.target[j - 1] = -1;     // leading insertion
                         --j;
-                        val = rd(k.H, W, k.rlo, 0, j);
+                        val = rd(H, W, k.rlo, 0, j);
                         chan = 0;
                         continue;
                     }
@@ -352,29 +291,29 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
                         int subv = (int)s_seq[j - 1] == k.base[v] ? m : -n;
                         for (int p = 0; p < npr; ++p) {
                             int pr = np > 0 ? k.rpreds[(size_t)i * pcap + p] : 0;
-                            if (rd(k.H, W, k.rlo, pr, j - 1) + subv == val) {
+                            if (rd(H, W, k.rlo, pr, j - 1) + subv == val) {
                                 k.target[j - 1] = v;
                                 i = pr; --j; chan = 0;
-                                val = rd(k.H, W, k.rlo, i, j);
+                                val = rd(H, W, k.rlo, i, j);
                                 moved = true;
                                 break;
                             }
                         }
                     }
                     if (moved) continue;
-                    if (rd(k.E1, W, k.rlo, i, j) == val) { chan = 2; continue; }
-                    if (rd(k.E2, W, k.rlo, i, j) == val) { chan = 3; continue; }
+                    if (rd(E1, W, k.rlo, i, j) == val) { chan = 2; continue; }
+                    if (rd(E2, W, k.rlo, i, j) == val) { chan = 3; continue; }
                     if (chan == 0) {
                         int kf = -1;
                         for (int kk = j - 1; kk >= 0; --kk) {
-                            int h = rd(k.Hq, W, k.rlo, i, kk);
+                            int h = rd(Hq, W, k.rlo, i, kk);
                             if (h - g - (j - 1 - kk) * e == val ||
                                 h - q - (j - 1 - kk) * c == val) { kf = kk; break; }
                         }
                         if (kf >= 0) {
                             for (int t = kf; t < j; ++t) k.target[t] = -1;
                             j = kf; chan = 1;
-                            val = rd(k.Hq, W, k.rlo, i, j);
+                            val = rd(Hq, W, k.rlo, i, j);
                             continue;
                         }
                     }
@@ -382,12 +321,12 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
                     break;
                 }
                 const int op = chan == 2 ? g : q, ex = chan == 2 ? e : c;
-                const int32_t* Em = chan == 2 ? k.E1 : k.E2;
+                const int32_t* Em = chan == 2 ? E1 : E2;
                 const int np = k.rnp[i], npr = np > 0 ? np : 1;
                 int nxt_i = -1, nxt_val = 0, nxt_chan = chan;
                 for (int p = 0; p < npr; ++p) {
                     int pr = np > 0 ? k.rpreds[(size_t)i * pcap + p] : 0;
-                    int h = rd(k.H, W, k.rlo, pr, j);
+                    int h = rd(H, W, k.rlo, pr, j);
                     if (h - op == val) { nxt_i = pr; nxt_val = h; nxt_chan = 0; break; }
                 }
                 if (nxt_i < 0) {
@@ -407,60 +346,9 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
         // only ever read by the other threads after the end-of-round
         // barrier, never in an interval where thread 0 may write it.
         if (tid == 0 && !s_ovf) {
-            int prev = -1, guard = -1, nspl = 0;
-            int Vc = s_Vc, head = s_head, gs = s_gs, o = 0;
-            int32_t* prow_out = bpaths + (size_t)r * LW;
-            for (int j = 0; j < L && !o; ++j) {
-                const int bch = s_seq[j];
-                const int t = k.target[j];
-                int v = -1;
-                bool saw = false;
-                if (t >= 0) {
-                    int cand = t;
-                    for (int rr = 0; rr < RING_CAP; ++rr) {
-                        if (k.base[cand] == bch) {
-                            saw = true;
-                            if (k.pos[cand] > guard) { v = cand; break; }
-                        }
-                        cand = k.ring[cand];
-                        if (cand == t) break;
-                    }
-                }
-                if (v < 0) {
-                    if (saw) ++gs;
-                    if (Vc >= VW) { o = 1; break; }
-                    v = Vc++;
-                    k.base[v] = bch; k.npred[v] = 0; k.nsucc[v] = 0;
-                    k.ring[v] = v;
-                    if (t >= 0) { k.spl[2 * nspl] = t; k.spl[2 * nspl + 1] = v; ++nspl; }
-                    if (prev < 0) { k.nxt[v] = head; head = v; k.pos[v] = -1; }
-                    else {
-                        k.nxt[v] = k.nxt[prev]; k.nxt[prev] = v;
-                        k.pos[v] = k.pos[prev];
-                    }
-                } else {
-                    guard = k.pos[v];
-                }
-                if (prev >= 0) {
-                    const int np = k.npred[v];
-                    bool has = false;
-                    for (int p = 0; p < np; ++p)
-                        if (k.preds[(size_t)v * pcap + p] == prev) { has = true; break; }
-                    if (!has) {
-                        if (np >= pcap) { o = 1; break; }
-                        k.preds[(size_t)v * pcap + np] = prev;
-                        k.npred[v] = np + 1;
-                        k.nsucc[prev] += 1;
-                    }
-                }
-                prow_out[j] = v;
-                prev = v;
-            }
-            for (int s = 0; s < nspl && !o; ++s) {
-                int t = k.spl[2 * s], v = k.spl[2 * s + 1];
-                k.ring[v] = k.ring[t];
-                k.ring[t] = v;
-            }
+            int Vc = s_Vc, head = s_head, gs = s_gs;
+            const int o = thread_seq(k, s_seq, L, VW, Vc, head, gs,
+                                     bpaths + (size_t)r * LW);
             s_Vc = Vc; s_head = head; s_gs = gs;
             if (o) s_ovf = 1;
         }
@@ -469,24 +357,17 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
 
     // ---- export ----
     if (s_ovf) {
-        for (size_t x = tid; x < (size_t)RW * LW; x += NT) bpaths[x] = -1;
-        for (size_t x = tid; x < 3 * (size_t)VW; x += NT) bexp[x] = -1;
+        export_overflow_par(bpaths, (size_t)RW * LW, bexp, VW, tid, NT);
         if (tid == 0) {
             meta[4 * b] = 0; meta[4 * b + 1] = 1;
             meta[4 * b + 2] = R; meta[4 * b + 3] = 0;
         }
         return;
     }
-    const int Vc = s_Vc;
-    for (int v = tid; v < VW; v += NT) {
-        bexp[v] = v < Vc ? k.base[v] : -1;
-        bexp[VW + v] = v < Vc ? k.ring[v] : -1;
-        if (v >= Vc) bexp[2 * VW + v] = -1;
-    }
+    export_nodes_par(k, bexp, VW, s_Vc, tid, NT);
     if (tid == 0) {
-        int i = 0;
-        for (int v = s_head; v >= 0 && i < Vc; v = k.nxt[v]) bexp[2 * VW + i++] = v;
-        meta[4 * b] = Vc; meta[4 * b + 1] = 0;
+        export_order(k, bexp, VW, s_Vc, s_head);
+        meta[4 * b] = s_Vc; meta[4 * b + 1] = 0;
         meta[4 * b + 2] = R; meta[4 * b + 3] = s_gs;
     }
 }

@@ -2,10 +2,11 @@
 imported, into smoothxg_tpu_torch/_build/, keyed by a hash of the sources
 and flags.
 
-* CUDA kernels: csrc/*.cu (with the shared csrc/*.cuh) compile with one
-  nvcc call into one shared library with a plain C interface (pointers
-  and the stream go in as c_void_p), loaded with ctypes.  No PyTorch
-  headers are involved, so a build takes seconds.
+* CUDA kernels: each csrc/*.cu (with the shared csrc/*.cuh) compiles with
+  its own nvcc process, all started together, and one nvcc call links the
+  objects into one shared library with a plain C interface (pointers and
+  the stream go in as c_void_p), loaded with ctypes.  No PyTorch headers
+  are involved, so a build takes seconds.
 * Host libraries: each csrc/host/<name>.cpp compiles with g++ into
   lib<name>.so (graphcore, cpoa, sgd, wfa), with the flags the JAX
   package's native/Makefile uses, so both packages compute the same bytes.
@@ -25,8 +26,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -56,25 +57,42 @@ def lib_path() -> str:
 
 
 def build() -> str:
-    """Compile csrc/*.cu unless a library for these exact sources exists."""
+    """Compile csrc/*.cu unless a library for these exact sources exists:
+    one nvcc process per source, all at once, then one link."""
     path = lib_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     t0 = time.perf_counter()
+    procs = []
     try:
-        res = subprocess.run([_nvcc(), *FLAGS, "-o", tmp, *_sources()],
+        for src in _sources():
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [_nvcc(), *FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs = []
+        for src, _, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{out}{err}")
+            logs.append(err.strip())
+        tmp = os.path.join(work, "lib.so")
+        res = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", tmp,
+                              *(obj for _, obj, _ in procs)],
                              capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
+            raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)
         os.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
     build_log.update(seconds=time.perf_counter() - t0,
-                     ptxas=res.stderr.strip(), path=path)
+                     ptxas="\n".join(logs), path=path)
     return path
 
 
@@ -139,6 +157,9 @@ def load() -> ctypes.CDLL:
             lib.poa_win_launch.restype = ci
             lib.poa_round_launch.argtypes = [vp] * 10 + [ci] * 5 + [vp]
             lib.poa_round_launch.restype = ci
+            for name in ("poa_code_launch", "poa_stacked_launch"):
+                getattr(lib, name).argtypes = [vp] * 8 + [ci] * 7 + [vp]
+                getattr(lib, name).restype = ci
             lib.poa_win_error_string.argtypes = [ci]
             lib.poa_win_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -3,12 +3,12 @@
 Same interface as smoothxg_tpu/ops/poa_pallas_fused.FusedPallasEngine
 (windowed path): `poa_block_batch`, `poa_block_batch_iter`, `stats`,
 `warmup`.  Each block routes to the smallest tier that holds it; a chunk of
-same-variant blocks becomes one `poa_win` launch (one thread block per POA
-block); blocks that fit no tier, and blocks whose launch sets the overflow
-flag, run on the native C++ engine, which implements the same semantics —
-both counted in stats().  There is no failover: a CUDA error raises.  The
-host steal of FusedPallasEngine is not ported yet (it needs rates measured
-on the card).
+same-variant blocks becomes one kernel launch (`poa_win` by default: one
+thread block per POA block); blocks that fit no tier, and blocks whose
+launch sets the overflow flag, run on the native C++ engine, which
+implements the same semantics — both counted in stats().  There is no
+failover: a CUDA error raises.  The host steal of FusedPallasEngine is not
+ported yet (it needs rates measured on the card).
 
 Tiers are (VW, LW, W): node capacity, sequence capacity, stored DP window.
 On the H100 the DP planes live in device memory at 16 bytes per cell
@@ -22,6 +22,16 @@ tiers took — full width to LW 4096, banded long blocks to LW 10240, VW to
   (6144, 3072, 3072)   mid-length full-width blocks, 302 MB
   (8704, 4096, 4096)   full width to 4095 bp, 570 MB
   (8704, 10240, 3072)  banded (abPOA) long blocks, 428 MB
+
+Two options select the other whole-block kernels, as they select them in
+FusedPallasEngine:
+  * `shape=(VW, LW)` gives one full-width tier (VW, LW, LW) served by
+    ops/poa_code.poa_code (csrc/poa_code.cu, the port of the unwindowed
+    Pallas kernel _pallas_core: code-chase traceback, 8 predecessor slots);
+  * `kernel="stacked"` serves full-width tiers by
+    ops/poa_stacked.poa_stacked (csrc/poa_stacked.cu, the port of
+    _stacked_core: one warp per block, 4 predecessor slots), by default
+    the four full-width tiers above; a windowed tier raises ValueError.
 """
 from __future__ import annotations
 
@@ -32,9 +42,11 @@ import torch
 
 from ..device import resolve
 from . import poa_native
+from .poa_code import CodeCaps, poa_code
 from .poa_fused import FusedHostEngine
 from .poa_host import POAParams
 from .poa_rehydrate import GROWTH_CAL, estimate_final_v, rehydrate_device_raw
+from .poa_stacked import poa_stacked, scratch_words, stacked_caps
 from .poa_win import WinCaps, pack_blocks, poa_win
 
 __all__ = ["POAParams", "TorchPOAEngine", "rehydrate_device_raw"]
@@ -51,7 +63,24 @@ class TorchPOAEngine:
 
     def __init__(self, device: str | torch.device = "cuda",
                  max_seqs: int = 48, tiers: tuple | None = None,
-                 threads: int = 1):
+                 threads: int = 1, shape: tuple | None = None,
+                 kernel: str = "win"):
+        if kernel not in ("win", "stacked"):
+            raise ValueError(f"unknown kernel {kernel!r} (win or stacked)")
+        if shape is not None and (tiers is not None or kernel != "win"):
+            raise ValueError("shape selects the one-tier code-chase kernel: "
+                             "give it without tiers or kernel")
+        if shape is not None:
+            self.kernel = "code"
+            tiers = ((shape[0], shape[1], shape[1]),)
+        elif kernel == "stacked":
+            self.kernel = "stacked"
+            tiers = tiers or tuple(t for t in self.TIERS if t[2] == t[1])
+            if any(t[2] != t[1] for t in tiers):
+                raise ValueError("kernel='stacked' is full width only: "
+                                 f"windowed tier in {tiers}")
+        else:
+            self.kernel = "win"
         self.device = resolve(device)
         self.tiers = tuple(tuple(t) for t in (tiers or self.TIERS))
         self.RW = max_seqs
@@ -94,23 +123,37 @@ class TorchPOAEngine:
         }
 
     def warmup(self, locals_=(True,), banded=(False,), tiers=None):
-        """Build the kernel library and launch each requested (local,
-        banded) variant once on a one-block batch.  `tiers` is accepted
-        for FusedPallasEngine's signature: one kernel serves every tier."""
+        """Build the kernel library and launch the selected kernel once
+        for each requested (local, banded) variant on a one-block batch.
+        `tiers` is accepted for FusedPallasEngine's signature: one kernel
+        serves every tier."""
         if self.device.type != "cuda":
             return
         ins = pack_blocks([([np.zeros(1, np.uint8)], POAParams())], 128)
         ins = [x.to(self.device) for x in ins]
         for local in locals_:
             for bd in banded:
-                poa_win(*ins, WinCaps(8, 128, 128, local, bd))
+                kern, caps, _ = self._kernel(8, 128, 128, local, bd)
+                kern(*ins, caps)
                 self.kernel_launches += 1
         torch.cuda.synchronize(self.device)
 
+    def _kernel(self, VW: int, LW: int, W: int, local: bool, banded: bool):
+        """The selected kernel's wrapper, its caps for a tier and variant,
+        and its int32 scratch words per block."""
+        if self.kernel == "code":
+            caps = CodeCaps(VW, LW, local, banded)
+            return poa_code, caps, caps.scratch_words()
+        if self.kernel == "stacked":
+            caps = stacked_caps(VW, LW, local, banded)
+            return poa_stacked, caps, scratch_words(caps)
+        caps = WinCaps(VW, LW, W, local, banded)
+        return poa_win, caps, caps.scratch_words()
+
     def _tier_batch(self, ti: int) -> int:
         VW, LW, W = self.tiers[ti]
-        per = 4 * WinCaps(VW, LW, W, True, W < LW).scratch_words()
-        return max(1, min(self.MAX_BATCH, self.SCRATCH_BUDGET // per))
+        words = self._kernel(VW, LW, W, True, W < LW)[2]
+        return max(1, min(self.MAX_BATCH, self.SCRATCH_BUDGET // (4 * words)))
 
     def _route(self, seqs, params=None) -> int | None:
         """Smallest tier index this block fits, or None (native engine).
@@ -238,8 +281,8 @@ class TorchPOAEngine:
         ins = pack_blocks([(blocks[i][0], blocks[i][2]) for i in chunk], LW)
         maxl = int(ins[1].max())
         dev = self.device
-        meta, exp, paths = poa_win(*(x.to(dev) for x in ins),
-                                   WinCaps(VW, LW, W, local, banded))
+        kern, caps, _ = self._kernel(VW, LW, W, local, banded)
+        meta, exp, paths = kern(*(x.to(dev) for x in ins), caps)
         if dev.type == "cuda":
             self.kernel_launches += 1
         self.calls += 1

@@ -126,11 +126,25 @@ def poa_win(seqs: torch.Tensor, slen: torch.Tensor, nseq: torch.Tensor,
     kernel (and raise on any launch error); CPU tensors run the plain
     version.  Returns (meta, exp, paths) on the inputs' device."""
     _check_inputs(seqs, slen, nseq, params, caps)
-    dev = seqs.device
-    if dev.type == "cpu":
+    if seqs.device.type == "cpu":
         return poa_win_reference(seqs, slen, nseq, params, caps)
+    out = launch("poa_win", seqs, slen, nseq, params, caps,
+                 caps.scratch_words(), caps.W, caps.pcap)
+    poa_win.launches += 1
+    return out
+
+
+poa_win.launches = 0     # kernel launches made by this wrapper
+
+
+def launch(name: str, seqs, slen, nseq, params, caps, words: int, *extra):
+    """Allocate the outputs and `words` int32 of scratch per block, launch
+    lib.<name>_launch(inputs, outputs, scratch, B, RW, LW, VW, *extra,
+    local, banded, stream) on the current stream and raise on a launch
+    error (the whole-block kernels' shared C interface)."""
+    dev = seqs.device
     if dev.type != "cuda":
-        raise ValueError(f"poa_win: unsupported device {dev}")
+        raise ValueError(f"{name}: unsupported device {dev}")
     from . import _build
     lib = _build.load()
     B, RW, LW = seqs.shape
@@ -141,25 +155,20 @@ def poa_win(seqs: torch.Tensor, slen: torch.Tensor, nseq: torch.Tensor,
     paths = torch.empty((B, RW, LW), dtype=torch.int32, device=dev)
     if B == 0:
         return meta, exp, paths
-    scratch = torch.empty(B * caps.scratch_words(), dtype=torch.int32,
-                          device=dev)
+    scratch = torch.empty(B * words, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.poa_win_launch(
+        rc = getattr(lib, f"{name}_launch")(
             seqs.data_ptr(), slen.data_ptr(), nseq.data_ptr(),
             params.data_ptr(), meta.data_ptr(), exp.data_ptr(),
             paths.data_ptr(), scratch.data_ptr(),
-            B, RW, LW, caps.VW, caps.W, caps.pcap, int(caps.local),
-            int(caps.banded), stream)
+            B, RW, LW, caps.VW, *extra, int(caps.local), int(caps.banded),
+            stream)
     if rc != 0:
         msg = lib.poa_win_error_string(rc).decode()
-        raise RuntimeError(f"poa_win kernel launch failed: CUDA error "
-                           f"{rc} ({msg})")
-    poa_win.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")
     return meta, exp, paths
-
-
-poa_win.launches = 0     # kernel launches made by this wrapper
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +242,7 @@ class _RefBlock:
         # P: 0 = H, 1 = E1, 2 = E2, 3 = Hq, so a predecessor read is one
         # slice.
         rows = min(VW, sum(lens)) + 1
-        self.Wa = W if caps.banded else min(W, max(lens) + 1)
+        self.Wa = self._stored_width(lens)
         self.P = torch.empty((rows, 4, self.Wa), dtype=torch.int32)
         self.H, self.E1, self.E2, self.Hq = (self.P[:, t] for t in range(4))
         self.ar = torch.arange(max(LW, W) + 1, dtype=torch.int32)
@@ -274,6 +283,19 @@ class _RefBlock:
         return (V, self.gs, self.base[:V], self.ring[:V], order,
                 out_paths)
 
+    def _stored_width(self, lens: list) -> int:
+        """Columns of the planes: the window, or (unbanded) what the
+        longest sequence can touch."""
+        W = self.caps.W
+        return W if self.caps.banded else min(W, max(lens) + 1)
+
+    def _offsets(self, blo: list) -> list:
+        """First stored column of each row: the band floor (row 0 stores
+        [0, W))."""
+        off = list(blo)
+        off[0] = 0
+        return off
+
     def _walk(self) -> list:
         order = []
         v = self.head
@@ -286,36 +308,14 @@ class _RefBlock:
     # ---- DP fill + end cell + traceback ----
     def _align(self, seq: torch.Tensor, L: int) -> list:
         caps = self.caps
-        W = caps.W
         order = self._walk()
         V = len(order)
         pos = self.pos
         # per-row predecessor rows (row 0 = virtual source)
         rp = [[0]] + [[pos[u] + 1 for u in self.preds[v]] or [0]
                       for v in order]
-        blo = [0] * (V + 1)
-        bhi = [L] * (V + 1)
-        if caps.banded:
-            w = self.wb + (self.wfm * L) // 1000
-            mr = [0] * (V + 1)
-            Mr = [0] * (V + 1)
-            D = 0
-            for i in range(1, V + 1):
-                if self.preds[order[i - 1]]:
-                    mr[i] = 1 + min(mr[p] for p in rp[i])
-                    Mr[i] = 1 + max(Mr[p] for p in rp[i])
-                else:
-                    mr[i] = Mr[i] = 1
-                D = max(D, Mr[i])
-            adj_l = max(0, D - L)
-            adj_r = max(0, L - D)
-            for i in range(1, V + 1):
-                blo[i] = max(0, mr[i] - w - adj_l)
-                bhi[i] = min(L, Mr[i] + w + adj_r)
-                if bhi[i] - blo[i] + 1 > W:
-                    raise _Overflow
-        off = list(blo)          # row i stores columns [off[i], off[i]+W)
-        off[0] = 0
+        blo, bhi = self._band(order, rp, L)
+        off = self._offsets(blo)
         self.off = off
         # seqp[j] = char j-1 (the M term's character at column j)
         seqp = torch.cat([torch.tensor([-1 << 20], dtype=torch.int32),
@@ -323,7 +323,7 @@ class _RefBlock:
         self.rown = [0] * (V + 1)     # computed columns per row
         best, brow = NEG, 0
         for i in range(1, V + 1):
-            rmax = self._fill_row(i, rp[i], off, bhi[i], L, seqp,
+            rmax = self._fill_row(i, rp[i], blo[i], bhi[i], L, seqp,
                                   self.base[order[i - 1]])
             if caps.local and rmax > best:
                 best, brow = rmax, i
@@ -344,10 +344,39 @@ class _RefBlock:
             ej = L
         return self._traceback(ei, ej, order, rp, seq.tolist(), L)
 
-    def _fill_row(self, i, prs, off, bhi, L, seqp, bv) -> int:
-        """Row i over columns [c0, c1] of its window (c0 = off[i] is the
-        band floor); returns the row's max over its band."""
+    def _band(self, order: list, rp: list, L: int) -> tuple:
+        """(blo, bhi) per row: the abPOA adaptive band (min/max
+        topological rank of the node, widened by w), else [0, L]."""
+        caps = self.caps
+        V = len(order)
+        blo = [0] * (V + 1)
+        bhi = [L] * (V + 1)
+        if caps.banded:
+            w = self.wb + (self.wfm * L) // 1000
+            mr = [0] * (V + 1)
+            Mr = [0] * (V + 1)
+            D = 0
+            for i in range(1, V + 1):
+                if self.preds[order[i - 1]]:
+                    mr[i] = 1 + min(mr[p] for p in rp[i])
+                    Mr[i] = 1 + max(Mr[p] for p in rp[i])
+                else:
+                    mr[i] = Mr[i] = 1
+                D = max(D, Mr[i])
+            adj_l = max(0, D - L)
+            adj_r = max(0, L - D)
+            for i in range(1, V + 1):
+                blo[i] = max(0, mr[i] - w - adj_l)
+                bhi[i] = min(L, Mr[i] + w + adj_r)
+                if bhi[i] - blo[i] + 1 > caps.W:
+                    raise _Overflow
+        return blo, bhi
+
+    def _fill_row(self, i, prs, blo, bhi, L, seqp, bv) -> int:
+        """Row i over columns [c0, c1] of its window (c0 = off[i] = blo is
+        the band floor); returns the row's max over its band."""
         W = self.caps.W
+        off = self.off
         c0 = off[i]
         c1 = min(c0 + W - 1, L)
         n = c1 - c0 + 1

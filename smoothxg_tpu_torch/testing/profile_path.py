@@ -10,6 +10,11 @@ cumulative time.  Needs CUDA; without it, it fails.
   python -m smoothxg_tpu_torch.testing.profile_path --engine pallas
   python -m smoothxg_tpu_torch.testing.profile_path --engine fused \\
       --haplotypes 16 --length 80000 --out smoke_out/profile
+
+`--engine code` and `--engine stacked` run the same flags through the API
+with TorchPOAEngine(shape=(8704, 4096)) (kernel poa_code) and
+TorchPOAEngine(kernel="stacked") (kernel poa_stacked), as chip_smoke.py's
+phases 9 and 11 do.
 """
 from __future__ import annotations
 
@@ -56,7 +61,8 @@ class _Timed:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--engine", choices=["fused", "pallas"], default="pallas")
+    ap.add_argument("--engine", choices=["fused", "pallas", "code", "stacked"],
+                    default="pallas")
     ap.add_argument("--haplotypes", type=int, default=16)
     ap.add_argument("--length", type=int, default=80_000)
     ap.add_argument("--seed", type=int, default=20261016)
@@ -70,6 +76,7 @@ def main(argv=None) -> int:
         return 1
     from .. import cli
     from ..ops import poa_engine, poa_round
+    from ..pipeline.run import run_smoothing
     from .synth import write_pangenome
 
     os.makedirs(args.out, exist_ok=True)
@@ -78,16 +85,31 @@ def main(argv=None) -> int:
                           snv_rate=0.01, indel_rate=0.001, sv_count=4,
                           seed=args.seed)
     argv_run = ["-g", gfa, "-o", os.path.join(args.out, "out.gfa"),
-                "-m", os.path.join(args.out, "out.maf"), *FLAGS,
-                "--engine", args.engine]
+                "-m", os.path.join(args.out, "out.maf"), *FLAGS]
+    if args.engine in ("fused", "pallas"):
+        argv_run += ["--engine", args.engine]
+
+        def run():
+            return cli.run(argv_run)
+    else:
+        cargs = cli.build_parser().parse_args(argv_run)
+        cfg = cli.config_from_args(cargs, not cargs.vanish_consensus)
+
+        def run():
+            eng = poa_engine.TorchPOAEngine(shape=(8704, 4096)) \
+                if args.engine == "code" else \
+                poa_engine.TorchPOAEngine(kernel="stacked")
+            return 0, run_smoothing(cfg, engine=eng)[2]
     with contextlib.redirect_stderr(io.StringIO()):
-        rc, _ = cli.run(argv_run)                  # warm-up
+        rc, _ = run()                              # warm-up
     if rc != 0:
         print(f"warm-up run exited {rc}", file=sys.stderr)
         return 1
 
-    mod, name = ((poa_engine, "poa_win") if args.engine == "fused"
-                 else (poa_round, "poa_round"))
+    mod, name = {"fused": (poa_engine, "poa_win"),
+                 "pallas": (poa_round, "poa_round"),
+                 "code": (poa_engine, "poa_code"),
+                 "stacked": (poa_engine, "poa_stacked")}[args.engine]
     timed = _Timed(getattr(mod, name), torch)
     setattr(mod, name, timed)
     log = io.StringIO()
@@ -96,7 +118,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(log):
             prof.enable()
-            rc, engine = cli.run(argv_run)
+            rc, engine = run()
             prof.disable()
         wall = time.perf_counter() - t0
     finally:

@@ -137,17 +137,23 @@ def make_round_task(rng: np.random.Generator, length: int, n: int,
     return graph, seqs[-1], params
 
 
-def make_fan_in_task(rng: np.random.Generator, width: int, flank: int,
-                     params) -> tuple:
-    """A round task whose graph has a node of in-degree `width` (at most
+def make_fan_in_block(rng: np.random.Generator, width: int,
+                      flank: int) -> list:
+    """A POA block whose graph gets a node of in-degree `width` (at most
     15): `width` sequences that differ in one middle base (IUPAC codes past
-    ACGT), between seeded flanks of `flank` bases; the query carries the
-    first middle base."""
-    from ..ops.poa_native import NativePOAEngine
+    ACGT), between seeded flanks of `flank` bases."""
     mids = b"ACGTNRYKMSWBDHV"[:width]
     left, right = (_ACGT[rng.integers(0, 4, flank)] for _ in range(2))
-    seqs = [np.concatenate([left, np.frombuffer(bytes([x]), np.uint8),
+    return [np.concatenate([left, np.frombuffer(bytes([x]), np.uint8),
                             right]) for x in mids]
+
+
+def make_fan_in_task(rng: np.random.Generator, width: int, flank: int,
+                     params) -> tuple:
+    """A round task whose graph has a node of in-degree `width`: the graph
+    of make_fan_in_block; the query carries the first middle base."""
+    from ..ops.poa_native import NativePOAEngine
+    seqs = make_fan_in_block(rng, width, flank)
     graph = NativePOAEngine().poa_block_batch(
         [(seqs, [1] * width, params)])[0]
     return graph, seqs[0].copy(), params
