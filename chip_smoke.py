@@ -6,9 +6,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, one line each or more; any failure exits nonzero and prints no
 result:
   1. device: CUDA required; the card's name, power limit and SM clock.
-  2. build:  csrc/*.cu (poa_win, poa_round, poa_code, poa_stacked)
-     compiled from the checkout, one nvcc process per source started
-     together and one link (each kernel's ptxas line); the port's
+  2. build:  csrc/*.cu (poa_win, poa_round, poa_code, poa_stacked,
+     probes) compiled from the checkout, one nvcc process per source
+     started together and one link (each kernel's ptxas registers: the
+     stage-0 instantiations of poa_code and poa_stacked, every stage, the
+     probe kernels' range by family); the port's
      host C++ libraries (csrc/host/*.cpp) with g++; the JAX package's
      native/ libraries, for the identity phase's reference subprocess only.
   3. kernel: >= 200 seeded blocks at every engine tier shape through the
@@ -41,11 +43,20 @@ result:
      in-degree up to 4 and an overflowing 5, one launch of > 132 blocks).
  11. stacked main path: run_smoothing with TorchPOAEngine(kernel=
      "stacked"); >= 90% of the blocks on poa_stacked, identity as phase 9.
-Every main path (4, 7, 9, 11) runs with all four kernels' launch counts
-set to 0 just before it and read just after: its own kernel must have
-launched and no other.  Then the kernels' JSON line, the nvidia-smi line
-and the result line.  No module of jax or of the JAX package may be
-loaded in this process.
+ 12. probes: every case and variant of the six probe tools
+     (smoothxg_tpu_torch/tools/probe_*.py, kernels csrc/probes.cu) equal to
+     its plain version at 5,000 steps, then timed at the TPU tools' N (ns
+     per step) or between their N1 and N2 (slope and floor), beside the
+     bound; a slope <= 0 fails.
+ 13. stages: poa_code stages 0-7 and poa_stacked stages 0-2 on phase 3's
+     timing block and on a launch of 132 copies; stage 0 equal to phases 8
+     / 10's outputs, stages 1 and 2 equal to their plain versions; the
+     fill / traceback / threading split (tools/profile_fused.py).
+Every main path (4, 7, 9, 11, and the probes' phase 12) runs with all
+eight wrappers' launch counts set to 0 just before it and read just
+after: its own kernels must have launched and no other.  Then the
+kernels' JSON line, the nvidia-smi line and the result line.  No module
+of jax or of the JAX package may be loaded in this process.
 """
 import contextlib
 import hashlib
@@ -130,11 +141,14 @@ def round_dp_work(graph, L: int) -> tuple:
 
 
 def int32_bound_ms(ops: int, clock_mhz: float) -> float:
-    """Least time for `ops` int32 operations on the card: 132 SMs x 64
-    int32 lanes per clock at the SM clock (nvidia-smi clocks.max.sm).  The
-    kernels' inputs and outputs are a few MB, far below this in time at
-    3.35 TB/s, so the bound is by operations."""
-    return ops / (132 * 64 * clock_mhz * 1e6) * 1e3
+    """Least time for `ops` int32 operations on the card: 132 SMs x 128
+    lanes per clock (each SM's issue rate, tools/_probe.SM_LANES: its
+    integer work is not held to the 64 INT32 units) at the SM clock
+    (nvidia-smi clocks.max.sm).  The kernels' inputs and outputs are a few
+    MB, far below this in time at 3.35 TB/s, so the bound is by
+    operations."""
+    from smoothxg_tpu_torch.tools._probe import SM_LANES
+    return ops / (132 * SM_LANES * clock_mhz * 1e6) * 1e3
 
 
 def win_dp_work(seqs, paths) -> tuple:
@@ -159,7 +173,8 @@ def win_dp_work(seqs, paths) -> tuple:
     return cells, pcells
 
 
-KERNELS = ("poa_win", "poa_round", "poa_code", "poa_stacked")
+PROBES = ("probe_scalar", "probe_row", "probe_tile", "probe_step")
+KERNELS = ("poa_win", "poa_round", "poa_code", "poa_stacked") + PROBES
 
 
 def wrappers() -> dict:
@@ -168,25 +183,32 @@ def wrappers() -> dict:
     from smoothxg_tpu_torch.ops.poa_round import poa_round
     from smoothxg_tpu_torch.ops.poa_stacked import poa_stacked
     from smoothxg_tpu_torch.ops.poa_win import poa_win
+    from smoothxg_tpu_torch.tools._probe import WRAPPERS
     return {"poa_win": poa_win, "poa_round": poa_round,
-            "poa_code": poa_code, "poa_stacked": poa_stacked}
+            "poa_code": poa_code, "poa_stacked": poa_stacked, **WRAPPERS}
 
 
-def drive(run, own: str):
+def drive(run, own):
     """Run a main path with every kernel's launch count set to 0 just
-    before and read just after.  Returns (run's result, `own`'s count);
-    fails unless `own` launched and no other kernel did."""
+    before and read just after.  `own` is a kernel's name or a tuple of
+    them.  Returns (run's result, own's count, or {name: count} for a
+    tuple); fails unless each of `own` launched and no other kernel
+    did."""
+    names = (own,) if isinstance(own, str) else tuple(own)
     ws = wrappers()
     for w in ws.values():
         w.launches = 0
     out = run()
     counts = {k: w.launches for k, w in ws.items()}
-    if counts[own] <= 0:
-        fail(f"the {own} main path launched no {own} kernel")
-    other = {k: v for k, v in counts.items() if k != own and v}
+    for name in names:
+        if counts[name] <= 0:
+            fail(f"the {'/'.join(names)} path launched no {name} kernel")
+    other = {k: v for k, v in counts.items() if k not in names and v}
     if other:
-        fail(f"the {own} main path launched other kernels: {other}")
-    return out, counts[own]
+        fail(f"the {'/'.join(names)} path launched other kernels: {other}")
+    if isinstance(own, str):
+        return out, counts[own]
+    return out, {k: counts[k] for k in names}
 
 
 def hold_to_plain(got, want, label: str) -> int:
@@ -561,6 +583,7 @@ def chase_phase(torch, dev, clock_mhz, name: str, timing: dict):
     ms, got = time_kernel(torch, kern, ins, caps)
     if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
         fail(f"{name} != plain version on the timing block")
+    timing[f"{name}_out"] = want             # phase 13 holds stage 0 to it
     batch_ms = time_copies(torch, kern, ins, caps)
     torch.cuda.empty_cache()
     full_ms = time_full_card(torch, dev, kern,
@@ -639,6 +662,183 @@ def same_bytes(tag: str, out: str, maf: str, ref_out: str,
         fail(f"{tag} output differs from the native engine's")
 
 
+# the probe tools of phase 12 with the TPU tools' step counts
+PROBE_TOOLS = (("probe_scalar_latency", {"n": 4096}),
+               ("probe_smem", {"n": 65536}),
+               ("probe_loop", {"n": 65536}),
+               ("probe_loop2", {"n1": 65536, "n2": 524288}),
+               ("probe_smem2", {"n1": 65536, "n2": 524288}),
+               ("probe_stack", {"n1": 65536, "n2": 524288}))
+# each family's headline case for the kernels' JSON line, and the TPU
+# kernels it stands for (file:line of the builder; its pallas_call line in
+# PERF.md)
+PROBE_FAMILIES = {
+    "probe_scalar": (("scalar", "chase"), "global",
+                     "tools/probe_smem.py:27",
+                     ["tools/probe_loop.py:56", "tools/probe_loop.py:70",
+                      "tools/probe_loop2.py:45", "tools/probe_loop2.py:54",
+                      "tools/probe_loop2.py:69", "tools/probe_smem2.py:48",
+                      "tools/probe_smem2.py:76"]),
+    "probe_row": (("row", "chase"), ("global", 32),
+                  "tools/probe_scalar_latency.py:35",
+                  ["tools/probe_loop.py:107", "tools/probe_loop.py:127",
+                   "tools/probe_loop2.py:86", "tools/probe_loop2.py:99",
+                   "tools/probe_loop2.py:114", "tools/probe_smem2.py:97"]),
+    "probe_tile": (("tile", "fillrow"), None, "tools/probe_smem2.py:117",
+                   ["tools/probe_loop.py:91", "tools/probe_loop2.py:126",
+                    "tools/probe_loop2.py:138"]),
+    "probe_step": (("step", 8), "block", "tools/probe_stack.py:27", []),
+}
+
+
+def probe_phase(torch, dev, clock_mhz):
+    """Phase 12: every case and variant of the six probe tools, driven
+    with all launch counts zeroed; returns the probe families' JSON entry
+    fields."""
+    import importlib
+    from smoothxg_tpu_torch.tools import _probe as P
+    reps = 3
+    errs = {f: 0 for f in PROBES}
+
+    def run_tools():
+        for tool, kw in PROBE_TOOLS:
+            mod = importlib.import_module(f"smoothxg_tpu_torch.tools.{tool}")
+            cases = mod.CASES if hasattr(mod, "CASES") else mod.cases(4096)
+            res = P.run_cases(tool, cases, reps=reps, device=dev,
+                              clock_mhz=clock_mhz,
+                              echo=lambda ln, t=tool: say(f"{t} {ln}"),
+                              **kw)
+            if not res["ok"]:
+                fail(f"{tool}: a probe failed (lines above)")
+            family = {c.name: c.family for c in cases}
+            for row in res["cases"]:
+                fam = f"probe_{family[row['name']]}"
+                errs[fam] = max(errs[fam], row["max_abs_err"])
+            cap = [r for r in res["cases"] if r["variant"] ==
+                   "cap_224KB[shared]"]
+            if tool == "probe_smem2" and not cap:
+                fail("cap_224KB did not run in shared memory")
+
+    t0 = time.perf_counter()
+    _, launches = drive(run_tools, PROBES)
+    say(f"probes: the six tools, every case and variant equal to its plain "
+        f"version at {P.CHECK_N} steps (tolerance 0: int32), slopes "
+        f"positive; launches {launches}; {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for fam, ((family, kind), var, rep, _) in PROBE_FAMILIES.items():
+        case = P.Case(f"{fam}/{kind}", family, kind)
+        var = var if var is not None else case.variants[0]
+        inp = case.inputs(dev)
+        n = P.CHECK_N
+        ms = P.measure(lambda: case.call(var, n, inp, dev), reps)
+        t0 = time.perf_counter()
+        case.reference(n)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        out[fam] = {"max_abs_err": errs[fam], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": case.bound(n, clock_mhz),
+                    "bound_by": "operations", "library_ms": None,
+                    "launches": launches[fam]}
+        say(f"headline {case.label(var)} at {n} steps: kernel "
+            f"{ms:.4f} ms, plain version {plain_ms:.1f} ms, bound "
+            f"{out[fam]['bound_ms']:.5f} ms")
+    return out
+
+
+STAGE_COPIES = 132             # one POA block per SM
+
+
+def stage_phase(torch, dev, timing: dict) -> None:
+    """Phase 13: the profiling stages of poa_code (0-7) and poa_stacked
+    (0-2) on phase 3's timing block and on STAGE_COPIES copies of it."""
+    from smoothxg_tpu_torch.ops.poa_code import (STAGES, CodeCaps, poa_code,
+                                                 poa_code_reference)
+    from smoothxg_tpu_torch.ops.poa_engine import POAParams
+    from smoothxg_tpu_torch.ops.poa_stacked import STAGES as STK_STAGES
+    from smoothxg_tpu_torch.ops.poa_stacked import (poa_stacked,
+                                                    poa_stacked_reference,
+                                                    stacked_caps)
+    from smoothxg_tpu_torch.ops.poa_win import pack_blocks
+    from smoothxg_tpu_torch.tools.profile_fused import (format_split,
+                                                        time_stages)
+    blk = timing["block"]
+    cpu_ins = pack_blocks([(blk, POAParams(local=True))], 2048)
+    ins = [x.to(dev) for x in cpu_ins]
+    insB = [x.repeat((STAGE_COPIES,) + (1,) * (x.dim() - 1)).contiguous()
+            for x in ins]
+
+    def run():
+        for name, kern, ref, caps, stages in (
+                ("poa_code", poa_code, poa_code_reference,
+                 CodeCaps(4352, 2048, True, False), STAGES),
+                ("poa_stacked", poa_stacked, poa_stacked_reference,
+                 stacked_caps(4352, 2048, True, False), STK_STAGES)):
+            got = [x.cpu() for x in kern(*ins, caps, stage=0)]
+            if not all(torch.equal(g, w) for g, w in
+                       zip(got, timing[f"{name}_out"])):
+                fail(f"{name} stage 0 != its phase 8 / 10 outputs")
+            for st in (1, 2):
+                got = [x.cpu() for x in kern(*ins, caps, stage=st)]
+                hold_to_plain(got, ref(*cpu_ins, caps, st),
+                              f"{name} stage {st}")
+                gotB = kern(*insB, caps, stage=st)
+                if not all(torch.equal(g.cpu(), w.repeat(
+                        (STAGE_COPIES,) + (1,) * (w.dim() - 1)))
+                        for g, w in zip(gotB, got)):
+                    fail(f"{name} stage {st}: the copies differ")
+            say(f"{name} stage 0 == phase {8 if name == 'poa_code' else 10}"
+                f"'s outputs; stages 1, 2 == their plain versions (max abs "
+                f"err 0) on the timing block and its {STAGE_COPIES} copies")
+            say(format_split(f"{name} timing block (V "
+                             f"{int(timing[name + '_out'][0][0, 0])})",
+                             time_stages(kern, ins, caps, stages, reps=3)))
+            say(format_split(f"{name} {STAGE_COPIES} copies",
+                             time_stages(kern, insB, caps, stages, reps=1)))
+            torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    _, launches = drive(run, ("poa_code", "poa_stacked"))
+    say(f"stages: launches {launches}, {time.perf_counter() - t0:.1f} s")
+
+
+def ptxas_registers(log: str) -> dict:
+    """{kernel entry (mangled): 'Used N registers, ...'} from ptxas -v."""
+    regs, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln
+        elif entry and "registers" in ln:
+            regs[entry] = ln.split(":", 1)[-1].strip()
+            entry = None
+    return regs
+
+
+def build_summary(log: str) -> str:
+    """Each POA kernel's registers (the code-chase kernels' stage-0
+    instantiation first, then every stage's count), and each probe
+    family's register range."""
+    regs = ptxas_registers(log)
+
+    def used(r):
+        return int(r.split("Used ")[1].split()[0]) if "Used " in r else -1
+    parts = []
+    for name in KERNELS[:4]:
+        own = {e: r for e, r in regs.items() if f"{name}_kernel" in e}
+        stage = {int(e.split(f"{name}_kernelILi")[1].split("E")[0]): r
+                 for e, r in own.items() if f"{name}_kernelILi" in e}
+        if stage:
+            parts.append(f"{name}_kernel stage 0: {stage.get(0, '?')} "
+                         f"(stages {', '.join(f'{k}: {used(v)}' for k, v in sorted(stage.items()))})")
+        else:
+            parts.append(f"{name}_kernel: "
+                         f"{next(iter(own.values()), 'ptxas: no report')}")
+    for fam in PROBES:
+        own = [used(r) for e, r in regs.items() if f"{fam}_" in e]
+        parts.append(f"{fam} kernels: {len(own)} instantiations, "
+                     f"{min(own, default=-1)}-{max(own, default=-1)} "
+                     f"registers")
+    return "; ".join(parts)
+
+
 def engine_run(gfa: str, out: str, maf: str, engine):
     """The main path through the API with a pre-built engine:
     run_smoothing(config_from_args(<the CLI's flags>), engine=engine)."""
@@ -683,17 +883,9 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load()
     t_cuda = time.perf_counter() - t0
-    ptxas = _build.build_log["ptxas"].splitlines()
-    regs = {}
-    for name in KERNELS:
-        at = [i for i, ln in enumerate(ptxas)
-              if "Compiling entry function" in ln and f"{name}_kernel" in ln]
-        used = [ln.strip() for ln in ptxas[at[0]:] if "registers" in ln] \
-            if at else []
-        regs[name] = used[0] if used else "ptxas: no report"
     say(f"build: CUDA kernels, one nvcc per source for sm_90a started "
         f"together and one link, {t_cuda:.2f} s ({_build.lib_path()}); "
-        + "; ".join(f"{n}_kernel: {regs[n]}" for n in KERNELS))
+        + build_summary(_build.build_log["ptxas"]))
     # the port's host C++ libraries build with g++ at first use; build
     # them here so the main paths' walls are not charged for them
     for name in ("graphcore", "cpoa", "sgd", "wfa"):
@@ -807,6 +999,12 @@ def main() -> None:
         same_bytes(f"{tag} main path", o, m, out2, maf2)
         torch.cuda.empty_cache()
 
+    # phases 12-13: the probes and the code-chase kernels' stages
+    entries.update(probe_phase(torch, dev, clock_mhz))
+    for fam in PROBES:
+        launches[fam] = entries[fam].pop("launches")
+    stage_phase(torch, dev, timing)
+
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "smoothxg_tpu."))
                     or m == "smoothxg_tpu")
@@ -817,11 +1015,18 @@ def main() -> None:
                 "poa_round": "smoothxg_tpu/ops/poa_pallas.py:54",
                 "poa_code": "smoothxg_tpu/ops/poa_pallas_fused.py:86",
                 "poa_stacked": "smoothxg_tpu/ops/poa_pallas_stacked.py:79"}
-    print(json.dumps({"kernels": [
-        {"name": n, "route": "cuda",
-         "source": f"smoothxg_tpu_torch/csrc/{n}.cu",
-         "replaces": replaces[n], "launches": launches[n], **entries[n]}
-        for n in KERNELS]}), flush=True)
+    kernels = []
+    for n in KERNELS:
+        if n in PROBE_FAMILIES:
+            extra = {"source": "smoothxg_tpu_torch/csrc/probes.cu",
+                     "replaces": PROBE_FAMILIES[n][2],
+                     "also_replaces": PROBE_FAMILIES[n][3]}
+        else:
+            extra = {"source": f"smoothxg_tpu_torch/csrc/{n}.cu",
+                     "replaces": replaces[n]}
+        kernels.append({"name": n, "route": "cuda", **extra,
+                        "launches": launches[n], **entries[n]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

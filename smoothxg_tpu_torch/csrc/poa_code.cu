@@ -34,6 +34,16 @@
 // cost.
 // Scores are int32 with the floor NEG = -2^30 (no int16 clamp).
 //
+// STAGE is _pallas_core's profiling knob (poa_pallas_fused.py:86-93), a
+// template parameter so that the stage-0 instantiation is the kernel
+// itself: 0 the full kernel; 1 fill + end cell (no code chase, no
+// threading); 2 fill + code chase (no threading); 3 threading without the
+// ring scan past the target; 4 threading without node creation or edge
+// bookkeeping; 5 fill without the F prefix scan (H = Hq); 6 fill without
+// the code word; 7 fill without the predecessor-slot loop.  Stages 5-7 also
+// skip the chase and the threading.  A nonzero stage is for timing: its
+// graphs are invalid by design.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c -Xcompiler
 //        -fPIC, one process per source, then one link into a shared
 //        library (smoothxg_tpu_torch/ops/_build.py).
@@ -52,6 +62,7 @@ constexpr int PCAP_MAX = 8;
 // Per-block scratch: the graph tables (poa_graph.cuh), then the DP planes
 // H E1 E2 CODE, each (VW + 1) x LW int32 — mirrored by
 // CodeCaps.scratch_words in ops/poa_code.py.
+template <int STAGE>
 __global__ void __launch_bounds__(NT)
 poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen,
                 const int32_t* __restrict__ nseq, const int32_t* __restrict__ params,
@@ -136,7 +147,8 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
             const int blo = k.rlo[i], bhi = k.rhi[i];
             int prow[PCAP_MAX];
             const int npr = np > 0 ? np : 1;
-            for (int p = 0; p < npr; ++p) prow[p] = pred_row(k, i, p);
+            for (int p = 0; p < (STAGE == 7 ? 0 : npr); ++p)
+                prow[p] = pred_row(k, i, p);
             int carry1 = NEG, carry2 = NEG;
             int rowbest = INT_MIN;
             int32_t* Hi = H + (size_t)i * LW;
@@ -153,7 +165,15 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
                     // slot that holds it
                     int hp[CPT + 1], hs[CPT + 1];
                     int x1[CPT], s1[CPT], x2[CPT], s2[CPT];
-                    for (int p = 0; p < npr; ++p) {
+                    if (STAGE == 7) {     // no predecessor-slot loop
+                        for (int x = 0; x <= CPT; ++x) {
+                            hp[x] = NEG + npr; hs[x] = 0;
+                        }
+                        for (int x = 0; x < CPT; ++x) {
+                            x1[x] = NEG; s1[x] = 0; x2[x] = NEG; s2[x] = 0;
+                        }
+                    }
+                    for (int p = 0; p < (STAGE == 7 ? 0 : npr); ++p) {
                         const size_t rb = (size_t)prow[p] * LW;
                         for (int x = 0; x <= CPT; ++x) {
                             const int j = jb - 1 + x;
@@ -198,9 +218,11 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
                     }
                 }
                 // block-wide exclusive prefix max of the thread totals
-                int ex1, ex2, tot1, tot2;
-                block_excl_max2(t1, t2, ex1, ex2, tot1, tot2, s_w1[buf],
-                                s_w2[buf]);
+                int ex1 = INT_MIN, ex2 = INT_MIN, tot1 = INT_MIN,
+                    tot2 = INT_MIN;
+                if (STAGE != 5)
+                    block_excl_max2(t1, t2, ex1, ex2, tot1, tot2, s_w1[buf],
+                                    s_w2[buf]);
                 int g1 = max(carry1, ex1), g2 = max(carry2, ex2);
                 if (jb <= L) {
                     for (int x = 0; x < CPT; ++x) {
@@ -208,21 +230,27 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
                         if (j > L) break;
                         const int h0 = hq[x];
                         int f1 = NEG, f2 = NEG;
-                        if (j > 0) {
+                        if (STAGE == 5) {         // no F scan: H = Hq
+                            f1 = h0; f2 = h0;
+                        } else if (j > 0) {
                             f1 = g1 - g - e * (j - 1);
                             f2 = g2 - q - c * (j - 1);
                         }
                         int h = max(h0, max(f1, f2));
                         const int u1 = h0 + e * j, u2 = h0 + c * j;
-                        const int n1 = u1 >= g1, n2 = u2 >= g2;
+                        const int n1 = STAGE == 5 || u1 >= g1,
+                                  n2 = STAGE == 5 || u2 >= g2;
                         g1 = max(g1, u1);
                         g2 = max(g2, u2);
                         if (j < blo || j > bhi) h = NEG;
                         else rowbest = max(rowbest, h);
                         Hi[j] = h;
-                        Ci[j] = cw[x] | ((h0 == h) << CL::HQEQ)
-                              | ((f1 == h) << CL::F1H) | ((f2 == h) << CL::F2H)
-                              | (n1 << CL::F1N) | (n2 << CL::F2N);
+                        if (STAGE != 6) {         // 6: no code word
+                            Ci[j] = cw[x] | ((h0 == h) << CL::HQEQ)
+                                | ((f1 == h) << CL::F1H)
+                                | ((f2 == h) << CL::F2H)
+                                | (n1 << CL::F1N) | (n2 << CL::F2N);
+                        }
                     }
                 }
                 carry1 = max(carry1, tot1);
@@ -254,8 +282,8 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
 
         // ---- code chase, then threading (thread 0, no barrier between:
         // s_ovf is read by the other threads only after the round's end
-        // barrier) ----
-        if (tid == 0) {
+        // barrier); stages 1 and 5-7 stop at the end cell ----
+        if (tid == 0 && STAGE != 1 && STAGE < 5) {
             int o = 0;
             if (have) {
                 if (local) {
@@ -266,10 +294,10 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
                 }
                 o = code_chase<7>(k, CC, LW, ei, ej, local);
             }
-            if (!o) {
+            if (!o && STAGE != 2) {
                 int Vc = s_Vc, head = s_head, gs = s_gs;
-                o = thread_seq(k, s_seq, L, VW, Vc, head, gs,
-                               bpaths + (size_t)r * LW);
+                o = thread_seq<STAGE>(k, s_seq, L, VW, Vc, head, gs,
+                                      bpaths + (size_t)r * LW);
                 s_Vc = Vc; s_head = head; s_gs = gs;
             }
             if (o) s_ovf = 1;
@@ -294,31 +322,52 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
     }
 }
 
-}  // namespace
+constexpr int STAGES = 8;
 
-extern "C" {
-
-// Launch on `stream` (PyTorch's current stream).  Returns cudaGetLastError()
-// after the launch: nonzero means the launch was refused or an earlier
-// asynchronous fault is pending, and the caller raises.
-int poa_code_launch(const void* seqs, const void* slen, const void* nseq,
-                    const void* params, void* meta, void* exp_, void* paths,
-                    void* scratch, int B, int RW, int LW, int VW, int pcap,
-                    int local, int banded, void* stream) {
-    if (B <= 0) return 0;
-    if (pcap < 1 || pcap > PCAP_MAX) return (int)cudaErrorInvalidValue;
-    const size_t smem = ((size_t)LW + 15) & ~(size_t)15;
+template <int S>
+int launch_stage(const void* seqs, const void* slen, const void* nseq,
+                 const void* params, void* meta, void* exp_, void* paths,
+                 void* scratch, int B, int RW, int LW, int VW, int pcap,
+                 int local, int banded, size_t smem, cudaStream_t stream) {
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
-            poa_code_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            poa_code_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
-    poa_code_kernel<<<B, NT, smem, (cudaStream_t)stream>>>(
+    poa_code_kernel<S><<<B, NT, smem, stream>>>(
         (const int8_t*)seqs, (const int32_t*)slen, (const int32_t*)nseq,
         (const int32_t*)params, (int32_t*)meta, (int32_t*)exp_,
         (int32_t*)paths, (int32_t*)scratch, RW, LW, VW, pcap, local, banded);
     return (int)cudaGetLastError();
+}
+
+using LaunchFn = int (*)(const void*, const void*, const void*, const void*,
+                         void*, void*, void*, void*, int, int, int, int, int,
+                         int, int, size_t, cudaStream_t);
+constexpr LaunchFn STAGE_LAUNCH[STAGES] = {
+    launch_stage<0>, launch_stage<1>, launch_stage<2>, launch_stage<3>,
+    launch_stage<4>, launch_stage<5>, launch_stage<6>, launch_stage<7>};
+
+}  // namespace
+
+extern "C" {
+
+// Launch stage `stage` (0 = the kernel; 1-7 the profiling cuts above) on
+// `stream` (PyTorch's current stream).  Returns cudaGetLastError() after
+// the launch: nonzero means the launch was refused or an earlier
+// asynchronous fault is pending, and the caller raises.
+int poa_code_launch(const void* seqs, const void* slen, const void* nseq,
+                    const void* params, void* meta, void* exp_, void* paths,
+                    void* scratch, int B, int RW, int LW, int VW, int pcap,
+                    int stage, int local, int banded, void* stream) {
+    if (B <= 0) return 0;
+    if (pcap < 1 || pcap > PCAP_MAX || stage < 0 || stage >= STAGES)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = ((size_t)LW + 15) & ~(size_t)15;
+    return STAGE_LAUNCH[stage](seqs, slen, nseq, params, meta, exp_, paths,
+                         scratch, B, RW, LW, VW, pcap, local, banded, smem,
+                         (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -209,6 +209,10 @@ __device__ int code_chase(Graph& k, const CodeT* cc, int LW, int i, int j,
 // Thread sequence `seq` (L chars) into the graph along the targets:
 // guarded aligned-ring reuse or a new node, deferred ring splices (as
 // poa_win.cu).  Returns 1 on overflow (node VW + 1, predecessor pcap + 1).
+// STAGE is poa_code.cu's profiling knob: 3 looks at the target alone (no
+// ring scan past it), 4 creates no node and books no edge (an unmatched
+// position takes node 0); every other stage threads in full.
+template <int STAGE = 0>
 __device__ int thread_seq(Graph& k, const int8_t* seq, int L, int VW,
                           int& Vc, int& head, int& gs, int32_t* path) {
     int prev = -1, guard = -1, nspl = 0;
@@ -219,7 +223,7 @@ __device__ int thread_seq(Graph& k, const int8_t* seq, int L, int VW,
         bool saw = false;
         if (t >= 0) {
             int cand = t;
-            for (int rr = 0; rr < RING_CAP; ++rr) {
+            for (int rr = 0; rr < (STAGE == 3 ? 1 : RING_CAP); ++rr) {
                 if (k.base[cand] == bch) {
                     saw = true;
                     if (k.pos[cand] > guard) { v = cand; break; }
@@ -228,7 +232,9 @@ __device__ int thread_seq(Graph& k, const int8_t* seq, int L, int VW,
                 if (cand == t) break;
             }
         }
-        if (v < 0) {
+        if (v < 0 && STAGE == 4) {
+            v = 0;
+        } else if (v < 0) {
             if (saw) ++gs;
             if (Vc >= VW) return 1;
             v = Vc++;
@@ -243,7 +249,7 @@ __device__ int thread_seq(Graph& k, const int8_t* seq, int L, int VW,
         } else {
             guard = k.pos[v];
         }
-        if (prev >= 0) {
+        if (prev >= 0 && STAGE != 4) {
             const int np = k.npred[v];
             bool has = false;
             for (int p = 0; p < np; ++p)

@@ -33,6 +33,12 @@
 // thread block (1 to 8), so up to 132 blocks each get an SM of their own
 // and larger batches share them.
 //
+// STAGE is _stacked_core's profiling knob (poa_pallas_stacked.py:79-84), a
+// template parameter so that the stage-0 instantiation is the kernel
+// itself: 0 the full kernel, 1 fill + end cell (no code chase, no
+// threading), 2 fill + code chase (no threading).  A nonzero stage is for
+// timing: its graphs are invalid by design.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c -Xcompiler
 //        -fPIC, one process per source, then one link into a shared
 //        library (smoothxg_tpu_torch/ops/_build.py).
@@ -63,6 +69,7 @@ __device__ __forceinline__ void warp_best(int& v, int& r) {
 // Per-block scratch: the graph tables (poa_graph.cuh), then the int32
 // planes H E1 E2, each (VW + 1) x LW, then the uint16 code plane —
 // mirrored by scratch_words in ops/poa_stacked.py.
+template <int STAGE>
 __global__ void __launch_bounds__(KMAX * 32)
 poa_stacked_kernel(const int8_t* __restrict__ seqs,
                    const int32_t* __restrict__ slen,
@@ -278,10 +285,11 @@ poa_stacked_kernel(const int8_t* __restrict__ seqs,
             ei = hr == INT_MAX ? 0 : hr;      // (a DAG always has a sink)
         }
 
-        // ---- code chase, then threading (lane 0) ----
-        if (lane == 0) {
+        // ---- code chase, then threading (lane 0); stage 1 stops at the
+        // end cell, stage 2 after the chase ----
+        if (lane == 0 && STAGE != 1) {
             int o = have ? code_chase<2>(k, CC, LW, ei, ej, local) : 0;
-            if (!o)
+            if (!o && STAGE != 2)
                 o = thread_seq(k, s_seq, L, VW, Vc, head, gs,
                                bpaths + (size_t)r * LW);
             ovf = o;
@@ -308,37 +316,50 @@ poa_stacked_kernel(const int8_t* __restrict__ seqs,
     }
 }
 
-}  // namespace
+constexpr int STAGES = 3;
 
-extern "C" {
-
-// Launch on `stream` (PyTorch's current stream): ceil(B / K) thread blocks
-// of K warps, K = ceil(B / 132) clamped to [1, 8].  Returns
-// cudaGetLastError() after the launch: nonzero means the launch was
-// refused or an earlier asynchronous fault is pending, and the caller
-// raises.
-int poa_stacked_launch(const void* seqs, const void* slen, const void* nseq,
-                       const void* params, void* meta, void* exp_,
-                       void* paths, void* scratch, int B, int RW, int LW,
-                       int VW, int pcap, int local, int banded,
-                       void* stream) {
-    if (B <= 0) return 0;
-    if (pcap < 1 || pcap > PCAP_STK) return (int)cudaErrorInvalidValue;
+template <int S>
+int launch_stage(const void* seqs, const void* slen, const void* nseq,
+                 const void* params, void* meta, void* exp_, void* paths,
+                 void* scratch, int B, int RW, int LW, int VW, int pcap,
+                 int local, int banded, cudaStream_t stream) {
     const int K = min(KMAX, max(1, (B + SMS - 1) / SMS));
     const size_t smem = (size_t)K * (((size_t)LW + 15) & ~(size_t)15);
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
-            poa_stacked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+            poa_stacked_kernel<S>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
-    poa_stacked_kernel<<<(B + K - 1) / K, K * 32, smem,
-                         (cudaStream_t)stream>>>(
+    poa_stacked_kernel<S><<<(B + K - 1) / K, K * 32, smem, stream>>>(
         (const int8_t*)seqs, (const int32_t*)slen, (const int32_t*)nseq,
         (const int32_t*)params, (int32_t*)meta, (int32_t*)exp_,
         (int32_t*)paths, (int32_t*)scratch, B, RW, LW, VW, pcap, local,
         banded);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch stage `stage` (0 = the kernel; 1, 2 the profiling cuts above) on
+// `stream` (PyTorch's current stream): ceil(B / K) thread blocks of K
+// warps, K = ceil(B / 132) clamped to [1, 8].  Returns cudaGetLastError()
+// after the launch: nonzero means the launch was refused or an earlier
+// asynchronous fault is pending, and the caller raises.
+int poa_stacked_launch(const void* seqs, const void* slen, const void* nseq,
+                       const void* params, void* meta, void* exp_,
+                       void* paths, void* scratch, int B, int RW, int LW,
+                       int VW, int pcap, int stage, int local, int banded,
+                       void* stream) {
+    if (B <= 0) return 0;
+    if (pcap < 1 || pcap > PCAP_STK || stage < 0 || stage >= STAGES)
+        return (int)cudaErrorInvalidValue;
+    auto* fn = stage == 0 ? launch_stage<0>
+             : stage == 1 ? launch_stage<1> : launch_stage<2>;
+    return fn(seqs, slen, nseq, params, meta, exp_, paths, scratch, B, RW,
+              LW, VW, pcap, local, banded, (cudaStream_t)stream);
 }
 
 }  // extern "C"

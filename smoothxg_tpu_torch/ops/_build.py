@@ -157,9 +157,17 @@ def load() -> ctypes.CDLL:
             lib.poa_win_launch.restype = ci
             lib.poa_round_launch.argtypes = [vp] * 10 + [ci] * 5 + [vp]
             lib.poa_round_launch.restype = ci
+            # (..., pcap, stage, local, banded, stream)
             for name in ("poa_code_launch", "poa_stacked_launch"):
-                getattr(lib, name).argtypes = [vp] * 8 + [ci] * 7 + [vp]
+                getattr(lib, name).argtypes = [vp] * 8 + [ci] * 8 + [vp]
                 getattr(lib, name).restype = ci
+            # the probes (csrc/probes.cu, smoothxg_tpu_torch/tools/_probe.py)
+            lib.probe_scalar_launch.argtypes = [ci] * 4 + [vp] * 3
+            lib.probe_row_launch.argtypes = [ci] * 4 + [vp] * 4
+            lib.probe_tile_launch.argtypes = [ci] * 2 + [vp] * 4
+            lib.probe_step_launch.argtypes = [ci] * 3 + [vp] * 4
+            for fam in ("scalar", "row", "tile", "step"):
+                getattr(lib, f"probe_{fam}_launch").restype = ci
             lib.poa_win_error_string.argtypes = [ci]
             lib.poa_win_error_string.restype = ctypes.c_char_p
             _LIB = lib

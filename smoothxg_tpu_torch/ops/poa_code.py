@@ -84,16 +84,33 @@ class CodeLayout:
 CODE32 = CodeLayout(7)
 
 
+# `stage`: _pallas_core's profiling knob (poa_pallas_fused.py:86-93), for
+# timing only — a nonzero stage gives invalid graphs by design.  0 the full
+# loop; 1 fill + end cell (no code chase, no threading); 2 fill + code
+# chase (no threading); 3 threading without the ring scan past the target;
+# 4 threading without node creation or edge bookkeeping; 5 / 6 / 7 the fill
+# without the F prefix scan (H = Hq) / the code word / the predecessor-slot
+# loop, each also without chase and threading.
+STAGES = range(8)
+
+
+def check_stage(stage: int, stages) -> None:
+    if stage not in stages:
+        raise ValueError(f"stage {stage} is not one of {list(stages)}")
+
+
 def poa_code(seqs: torch.Tensor, slen: torch.Tensor, nseq: torch.Tensor,
-             params: torch.Tensor, caps: CodeCaps):
-    """Run the whole POA loop of every block.  CUDA tensors launch the
-    kernel (and raise on any launch error); CPU tensors run the plain
-    version.  Returns (meta, exp, paths) on the inputs' device."""
+             params: torch.Tensor, caps: CodeCaps, stage: int = 0):
+    """Run the whole POA loop of every block (or a profiling `stage` of
+    it).  CUDA tensors launch the kernel (and raise on any launch error);
+    CPU tensors run the plain version.  Returns (meta, exp, paths) on the
+    inputs' device."""
     _check_inputs(seqs, slen, nseq, params, caps)
+    check_stage(stage, STAGES)
     if seqs.device.type == "cpu":
-        return poa_code_reference(seqs, slen, nseq, params, caps)
+        return poa_code_reference(seqs, slen, nseq, params, caps, stage)
     out = launch("poa_code", seqs, slen, nseq, params, caps,
-                 caps.scratch_words(), caps.pcap)
+                 caps.scratch_words(), caps.pcap, stage)
     poa_code.launches += 1
     return out
 
@@ -107,16 +124,20 @@ poa_code.launches = 0     # kernel launches made by this wrapper
 
 def poa_code_reference(seqs: torch.Tensor, slen: torch.Tensor,
                        nseq: torch.Tensor, params: torch.Tensor,
-                       caps: CodeCaps):
+                       caps: CodeCaps, stage: int = 0):
     """The same function in plain PyTorch on the CPU: each DP row is
     vectorized over its columns and records its code words; the walk,
-    the code chase and the threading are scalar."""
-    return code_reference(seqs, slen, nseq, params, caps, CODE32)
+    the code chase and the threading are scalar.  Stages 5-7 change only
+    the fill's arithmetic, whose values no stage from 5 up exports, so
+    their plain version is stage 1's."""
+    check_stage(stage, STAGES)
+    return code_reference(seqs, slen, nseq, params, caps, CODE32, stage)
 
 
-def code_reference(seqs, slen, nseq, params, caps, layout: CodeLayout):
+def code_reference(seqs, slen, nseq, params, caps, layout: CodeLayout,
+                   stage: int = 0):
     """The plain version for a code layout (poa_stacked's uses 2-bit
-    slots)."""
+    slots) at a profiling stage."""
     _check_inputs(seqs, slen, nseq, params, caps)
     B, RW, LW = seqs.shape
     meta = torch.empty((B, 4), dtype=torch.int32)
@@ -130,7 +151,7 @@ def code_reference(seqs, slen, nseq, params, caps, layout: CodeLayout):
         if ns[b] > RW:
             raise ValueError("nseq exceeds the RW sequence slots")
         res = _CodeBlock(sq[b], sl[b][:max(ns[b], 0)], pr[b], caps,
-                         layout).run()
+                         layout, 1 if stage >= 5 else stage).run()
         if res is None:
             meta[b] = torch.tensor([0, 1, ns[b], 0], dtype=torch.int32)
             continue
@@ -151,8 +172,9 @@ class _CodeBlock(_RefBlock):
     channel 3 (instead of Hq) and a code-chase traceback; the walk, band
     and threading are poa_win's."""
 
-    def __init__(self, seqs_b, lens, par, caps, layout: CodeLayout):
-        super().__init__(seqs_b, lens, par, caps)
+    def __init__(self, seqs_b, lens, par, caps, layout: CodeLayout,
+                 stage: int = 0):
+        super().__init__(seqs_b, lens, par, caps, stage)
         self.lay = layout
 
     def _stored_width(self, lens: list) -> int:

@@ -24,12 +24,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .poa_code import (CodeCaps, CodeLayout, code_reference,
+from .poa_code import (CodeCaps, CodeLayout, check_stage, code_reference,
                        from_fused_layout, to_fused_layout)
 from .poa_win import _check_inputs, launch
 
 PCAP = 4
 CODE16 = CodeLayout(2)
+# `stage`: _stacked_core's profiling knob (poa_pallas_stacked.py:79-84),
+# for timing only: 0 the full loop, 1 fill + end cell, 2 no threading.
+STAGES = range(3)
 
 
 def stacked_caps(VW: int, LW: int, local: bool, banded: bool) -> CodeCaps:
@@ -57,16 +60,18 @@ def _check_caps(caps) -> None:
 
 
 def poa_stacked(seqs: torch.Tensor, slen: torch.Tensor, nseq: torch.Tensor,
-                params: torch.Tensor, caps):
-    """Run the whole POA loop of every block.  CUDA tensors launch the
-    kernel (and raise on any launch error); CPU tensors run the plain
-    version.  Returns (meta, exp, paths) on the inputs' device."""
+                params: torch.Tensor, caps, stage: int = 0):
+    """Run the whole POA loop of every block (or a profiling `stage` of
+    it).  CUDA tensors launch the kernel (and raise on any launch error);
+    CPU tensors run the plain version.  Returns (meta, exp, paths) on the
+    inputs' device."""
     _check_caps(caps)
     _check_inputs(seqs, slen, nseq, params, caps)
+    check_stage(stage, STAGES)
     if seqs.device.type == "cpu":
-        return poa_stacked_reference(seqs, slen, nseq, params, caps)
+        return poa_stacked_reference(seqs, slen, nseq, params, caps, stage)
     out = launch("poa_stacked", seqs, slen, nseq, params, caps,
-                 scratch_words(caps), caps.pcap)
+                 scratch_words(caps), caps.pcap, stage)
     poa_stacked.launches += 1
     return out
 
@@ -75,11 +80,13 @@ poa_stacked.launches = 0     # kernel launches made by this wrapper
 
 
 def poa_stacked_reference(seqs: torch.Tensor, slen: torch.Tensor,
-                          nseq: torch.Tensor, params: torch.Tensor, caps):
+                          nseq: torch.Tensor, params: torch.Tensor, caps,
+                          stage: int = 0):
     """The same function in plain PyTorch on the CPU (ops/poa_code's
     code-chase plain version with 2-bit slot fields)."""
     _check_caps(caps)
-    return code_reference(seqs, slen, nseq, params, caps, CODE16)
+    check_stage(stage, STAGES)
+    return code_reference(seqs, slen, nseq, params, caps, CODE16, stage)
 
 
 def from_stacked_layout(nseq, par, slen, seqs, K: int, LW: int, RW: int):

@@ -214,15 +214,20 @@ class _Overflow(Exception):
 
 
 class _RefBlock:
-    """One block's POA loop in the plain version."""
+    """One block's POA loop in the plain version.  `stage` is the
+    code-chase kernels' profiling knob (ops/poa_code.py; poa_win has
+    none): 1 stops each round at the end cell, 2 after the traceback, 3
+    threads without the ring scan past the target, 4 without node
+    creation or edge bookkeeping."""
 
     def __init__(self, seqs_b: torch.Tensor, lens: list, par: list,
-                 caps: WinCaps):
+                 caps: WinCaps, stage: int = 0):
         self.seqs = seqs_b
         self.lens = lens
         self.m, self.n, self.g, self.e, self.q, self.c, self.wb, \
             self.wfm = par
         self.caps = caps
+        self.stage = stage
 
     def run(self):
         try:
@@ -277,6 +282,9 @@ class _RefBlock:
                 continue
             seq = self.seqs[r, :L]
             target = self._align(seq, L)
+            if self.stage in (1, 2):
+                out_paths.append([])      # no threading: the graph stays
+                continue
             out_paths.append(self._thread(target, seq.tolist(), L))
         order = self._walk()
         V = self.Vc
@@ -327,6 +335,8 @@ class _RefBlock:
                                   self.base[order[i - 1]])
             if caps.local and rmax > best:
                 best, brow = rmax, i
+        if self.stage == 1:
+            return None                   # fill + end cell only
         H = self.H.numpy()
         if caps.local:
             if best <= 0:
@@ -508,6 +518,7 @@ class _RefBlock:
         splices = []
         prev = -1
         guard = -1
+        scan = 1 if self.stage == 3 else RING_CAP
         for j in range(L):
             b = seq[j]
             t = target[j]
@@ -515,7 +526,7 @@ class _RefBlock:
             saw = False
             if t >= 0:
                 cand = t
-                for _ in range(RING_CAP):
+                for _ in range(scan):
                     if base[cand] == b:
                         saw = True
                         if pos[cand] > guard:
@@ -524,7 +535,9 @@ class _RefBlock:
                     cand = ring[cand]
                     if cand == t:
                         break
-            if v < 0:
+            if v < 0 and self.stage == 4:
+                v = 0                     # no node creation
+            elif v < 0:
                 if saw:
                     self.gs += 1
                 if self.Vc >= VW:
@@ -547,7 +560,7 @@ class _RefBlock:
                     pos[v] = pos[prev]
             else:
                 guard = pos[v]
-            if prev >= 0 and prev not in preds[v]:
+            if self.stage != 4 and prev >= 0 and prev not in preds[v]:
                 if len(preds[v]) >= pcap:
                     raise _Overflow
                 preds[v].append(prev)

@@ -1,7 +1,7 @@
 // cuda_emu.h — just enough of the CUDA runtime to run the port's
-// whole-block POA kernels on the CPU, for testing their logic where there
-// is no GPU (smoothxg_tpu_torch/testing/cuda_emu.py compiles a kernel
-// source against it with g++ -std=c++20).
+// whole-block POA kernels and its probes on the CPU, for testing their
+// logic where there is no GPU (smoothxg_tpu_torch/testing/cuda_emu.py
+// compiles a kernel source against it with g++ -std=c++20).
 //
 // A thread block is `blockDim.x` std::threads; thread blocks run one after
 // another, so `__shared__` variables are plain statics.  __syncthreads is a
@@ -48,6 +48,11 @@ inline const char* cudaGetErrorString(int) { return "no error"; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
+// cache-operator loads and stores: plain accesses on the host
+template <typename T>
+inline T __ldcg(const T* p) { return *p; }
+template <typename T>
+inline void __stcg(T* p, T v) { *p = v; }
 
 namespace emu {
 

@@ -1,16 +1,18 @@
-"""Run a whole-block POA kernel source (csrc/poa_win.cu, poa_code.cu,
-poa_stacked.cu) on the CPU, for testing its logic where there is no GPU and
-no nvcc.
+"""Run a kernel source of the port (csrc/poa_win.cu, poa_code.cu,
+poa_stacked.cu, probes.cu) on the CPU, for testing its logic where there is
+no GPU and no nvcc.
 
 `build(name, workdir)` rewrites csrc/<name>.cu for the CUDA emulation in
 testing/cuda_emu.h (dynamic shared memory becomes a host buffer, a
 `kernel<<<grid, block, smem, stream>>>(args)` launch becomes
 `emu::launch(...)`), appends a main program and compiles it with g++ -std=c++20.
-`run(exe, ...)` launches the kernel's C entry point `<name>_launch` on the
-port's (seqs, slen, nseq, params) CPU tensors and returns (meta, exp,
-paths), which must equal the plain PyTorch version's.  A race between
-threads shows as a hang, so callers run it under a timeout.  `sms` stands
-in for the card's SM count where a launch sizes its grid from it.
+`run(exe, ...)` launches a whole-block kernel's C entry point
+`<name>_launch` on the port's (seqs, slen, nseq, params) CPU tensors at a
+profiling `stage` and returns (meta, exp, paths), which must equal the
+plain PyTorch version's; `run_probe(exe, family, ...)` launches
+`probe_<family>_launch` of probes.cu and returns its 128 outputs.  A race
+between threads shows as a hang, so callers run it under a timeout.  `sms`
+stands in for the card's SM count where a launch sizes its grid from it.
 """
 from __future__ import annotations
 
@@ -29,10 +31,11 @@ _MAIN = r"""
 #include <cstdlib>
 int main(int argc, char** argv) {
     FILE* f = std::fopen(argv[1], "rb");
-    int hd[9];
-    if (std::fread(hd, 4, 9, f) != 9) return 2;
+    int hd[10];
+    if (std::fread(hd, 4, 10, f) != 10) return 2;
     const int B = hd[0], RW = hd[1], LW = hd[2], VW = hd[3], pcap = hd[4],
-              local = hd[5], banded = hd[6], words = hd[7], W = hd[8];
+              local = hd[5], banded = hd[6], words = hd[7], W = hd[8],
+              stage = hd[9];
     std::vector<int8_t> seqs((size_t)B * RW * LW);
     std::vector<int32_t> slen((size_t)B * RW), nseq(B), par((size_t)B * 8);
     if (std::fread(seqs.data(), 1, seqs.size(), f) != seqs.size() ||
@@ -44,7 +47,7 @@ int main(int argc, char** argv) {
         paths((size_t)B * RW * LW, 7), scratch((size_t)B * words, 0x5a5a5a5a);
     const int rc = LAUNCH(seqs.data(), slen.data(), nseq.data(), par.data(),
                           meta.data(), exp_.data(), paths.data(),
-                          scratch.data(), B, RW, LW, VW, WINDOW pcap, local,
+                          scratch.data(), B, RW, LW, VW, EXTRA local,
                           banded, nullptr);
     f = std::fopen(argv[2], "wb");
     std::fwrite(meta.data(), 4, meta.size(), f);
@@ -55,12 +58,48 @@ int main(int argc, char** argv) {
 }
 """
 
+# the probes' entry points: header (family, a, b, c, n, sz, input words),
+# then the input; scratch starts as garbage, as on the card
+_PROBE_MAIN = r"""
+#include <cstdio>
+#include <cstdlib>
+int main(int argc, char** argv) {
+    FILE* f = std::fopen(argv[1], "rb");
+    int hd[7];
+    if (std::fread(hd, 4, 7, f) != 7) return 2;
+    const int fam = hd[0], a = hd[1], b = hd[2], c = hd[3], n = hd[4],
+              sz = hd[5];
+    std::vector<int32_t> in((size_t)hd[6] + 1);
+    if (std::fread(in.data(), 4, hd[6], f) != (size_t)hd[6]) return 2;
+    std::fclose(f);
+    std::vector<int32_t> out(128, 7), scratch(2048 * 256 + 65536, 0x5a5a5a5a);
+    int rc = 1;
+    if (fam == 0)
+        rc = probe_scalar_launch(a, b, n, sz, scratch.data(), out.data(),
+                                 nullptr);
+    else if (fam == 1)
+        rc = probe_row_launch(a, b, c, n, in.data(), scratch.data(),
+                              out.data(), nullptr);
+    else if (fam == 2)
+        rc = probe_tile_launch(a, n, in.data(), scratch.data(), out.data(),
+                               nullptr);
+    else if (fam == 3)
+        rc = probe_step_launch(a, b, n, in.data(), scratch.data(),
+                               out.data(), nullptr);
+    f = std::fopen(argv[2], "wb");
+    std::fwrite(out.data(), 4, out.size(), f);
+    std::fclose(f);
+    return rc;
+}
+"""
+PROBE_FAMILIES = ("scalar", "row", "tile", "step")
+
 
 def _rewrite(src: str, sms: int | None) -> str:
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                  r"\1* \2 = (\1*)emu::dyn_smem.data();", src)
-    src = re.sub(r"(\w+)<<<(.+?)>>>\(", r"emu::launch(\2, \1, ", src,
-                 flags=re.S)
+    src = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<(.+?)>>>\(",
+                 r"emu::launch(\2, \1, ", src, flags=re.S)
     if sms is not None:
         src = re.sub(r"constexpr int SMS = \d+;",
                      f"constexpr int SMS = {sms};", src)
@@ -74,11 +113,17 @@ def build(name: str, workdir: str, sms: int | None = None) -> str:
         f.write(f'#include "{os.path.join(_HERE, "cuda_emu.h")}"\n')
     with open(os.path.join(CSRC, f"{name}.cu")) as f:
         src = _rewrite(f.read(), sms)
+    if name == "probes":
+        main = _PROBE_MAIN
+    else:
+        # poa_win_launch takes the stored window width before pcap; the
+        # code-chase kernels take a profiling stage after it
+        extra = "W, pcap," if name == "poa_win" else "pcap, stage,"
+        main = f"\n#define LAUNCH {name}_launch\n#define EXTRA {extra}\n" \
+            + _MAIN
     cpp = os.path.join(workdir, f"{name}_emu.cpp")
     with open(cpp, "w") as f:
-        # poa_win_launch takes the stored window width before pcap
-        f.write(src + f"\n#define LAUNCH {name}_launch\n#define WINDOW "
-                f"{'W,' if name == 'poa_win' else ''}\n" + _MAIN)
+        f.write(src + main)
     exe = os.path.join(workdir, f"{name}_emu")
     subprocess.run([os.environ.get("CXX", "g++"), "-std=c++20", "-O1",
                     "-pthread", "-w", "-I", workdir, "-I", CSRC, "-o", exe,
@@ -87,26 +132,43 @@ def build(name: str, workdir: str, sms: int | None = None) -> str:
     return exe
 
 
-def run(exe: str, seqs, slen, nseq, params, caps, words: int,
-        timeout: float = 120.0):
-    """Launch the emulated kernel on CPU tensors; returns (meta, exp,
-    paths) as int32 tensors."""
-    B, RW, LW = seqs.shape
+def _launch(exe: str, header: list, inputs, timeout: float) -> np.ndarray:
     d = os.path.dirname(exe)
     inp, out = os.path.join(d, "in.bin"), os.path.join(d, "out.bin")
     with open(inp, "wb") as f:
-        f.write(np.array([B, RW, LW, caps.VW, caps.pcap, int(caps.local),
-                          int(caps.banded), words, caps.W],
-                         np.int32).tobytes())
-        for t in (seqs, slen, nseq, params):
+        f.write(np.array(header, np.int32).tobytes())
+        for t in inputs:
             f.write(t.contiguous().numpy().tobytes())
     res = subprocess.run([exe, inp, out], capture_output=True, text=True,
                          timeout=timeout)
     if res.returncode != 0:
         raise RuntimeError(f"emulated launch failed: rc {res.returncode} "
                            f"{res.stderr[-400:]}")
-    raw = np.fromfile(out, np.int32)
+    return np.fromfile(out, np.int32)
+
+
+def run(exe: str, seqs, slen, nseq, params, caps, words: int,
+        stage: int = 0, timeout: float = 120.0):
+    """Launch the emulated kernel on CPU tensors; returns (meta, exp,
+    paths) as int32 tensors."""
+    B, RW, LW = seqs.shape
+    raw = _launch(exe, [B, RW, LW, caps.VW, caps.pcap, int(caps.local),
+                        int(caps.banded), words, caps.W, stage],
+                  (seqs, slen, nseq, params), timeout)
     n1, n2 = B * 4, B * 3 * caps.VW
     return (torch.from_numpy(raw[:n1].reshape(B, 4).copy()),
             torch.from_numpy(raw[n1:n1 + n2].reshape(B, 3, caps.VW).copy()),
             torch.from_numpy(raw[n1 + n2:].reshape(B, RW, LW).copy()))
+
+
+def run_probe(exe: str, family: str, args: tuple, n: int, sz: int = 1,
+              inp: torch.Tensor | None = None,
+              timeout: float = 120.0) -> torch.Tensor:
+    """Launch probe_<family>_launch of the emulated probes.cu with its
+    case arguments `args` (up to three ints, as the entry takes them) and
+    the input tensor `inp` (int32); returns the (128,) output."""
+    a = list(args) + [0] * (3 - len(args))
+    x = (inp if inp is not None else torch.zeros(0, dtype=torch.int32))
+    raw = _launch(exe, [PROBE_FAMILIES.index(family), *a, n, sz, x.numel()],
+                  (x.to(torch.int32),), timeout)
+    return torch.from_numpy(raw.copy())

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the GPU: each kernel (poa_win, poa_round,
-poa_code, poa_stacked) against its plain PyTorch version (exact equality,
-all outputs are integers) and each GPU engine's slice end to end against
-the native engine's bytes.  Every test needs an NVIDIA GPU and
+poa_code and poa_stacked at every profiling stage, the four probe
+families of csrc/probes.cu) against its plain PyTorch version (exact
+equality, all outputs are integers) and each GPU engine's slice end to end
+against the native engine's bytes.  Every test needs an NVIDIA GPU and
 skips without one.  Nothing here imports jax, so on a GPU machine without
 it: python -m pytest --noconftest -m cuda tests/test_torch_cuda.py"""
 import hashlib
@@ -31,6 +32,7 @@ from smoothxg_tpu_torch.testing.synth import (make_block, make_fan_in_block,
                                               make_fan_in_task,
                                               make_round_task,
                                               write_pangenome)
+from smoothxg_tpu_torch.tools import _probe
 
 pytestmark = pytest.mark.cuda
 
@@ -94,6 +96,53 @@ def test_chase_kernel_matches_plain_version(cuda_device, name, local,
     assert want[0][:, 1].tolist() == [0] * 139 + [1]
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("local", [True, False])
+@pytest.mark.parametrize("name", sorted(CHASE))
+def test_chase_kernel_stages_match_plain_version(cuda_device, name, local):
+    """Every profiling stage of poa_code (0-7) and poa_stacked (0-2) on
+    seeded blocks: stage 0 is the kernel itself, the other stages equal
+    their plain versions (graphs invalid by design, but deterministic)."""
+    from smoothxg_tpu_torch.ops import poa_code as pc, poa_stacked as ps
+    kern, ref, mkcaps, _, _ = CHASE[name]
+    stages = pc.STAGES if name == "poa_code" else ps.STAGES
+    rng = np.random.default_rng(57)
+    p = POAParams(local=local)
+    blocks = [make_block(rng, 100 + 40 * i, 3 + i % 3, 0.03)
+              for i in range(5)]
+    ins = pack_blocks([(sq, p) for sq in blocks], 512)
+    caps = mkcaps(1024, 512, local, False)
+    for st in stages:
+        got = kern(*(x.to(cuda_device) for x in ins), caps, stage=st)
+        torch.cuda.synchronize()
+        want = ref(*ins, caps, st)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), f"stage {st}"
+
+
+def _probe_cases(family):
+    cases = {"scalar": [_probe.Case(k, "scalar", k) for k in _probe.SCALAR]
+             + [_probe.Case("chase32k", "scalar", "chase", sz=32768)],
+             "row": [_probe.Case(k, "row", k) for k in _probe.ROW],
+             "tile": [_probe.Case(k, "tile", k) for k in _probe.TILE],
+             "step": [_probe.Case(f"K={k}", "step", k)
+                      for k in _probe.STEP_KS]}
+    return cases[family]
+
+
+@pytest.mark.parametrize("family", ["scalar", "row", "tile", "step"])
+def test_probe_kernels_match_plain_versions(cuda_device, family):
+    """Every case and variant of a probe family at 5,000 steps (the
+    224 KiB table set in shared memory among them)."""
+    wrapper = _probe.WRAPPERS[f"probe_{family}"]
+    before = wrapper.launches
+    nvar = 0
+    for case in _probe_cases(family):
+        assert _probe.check(case, cuda_device)[0] == 0, case.name
+        nvar += len(case.variants)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + nvar
 
 
 @pytest.mark.parametrize("local", [True, False])

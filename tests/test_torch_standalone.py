@@ -1,5 +1,6 @@
 """The port stands alone: no file of smoothxg_tpu_torch/, and not
 chip_smoke.py, imports jax or anything of the JAX package (smoothxg_tpu),
+of its tools/ or of native/,
 checked statically on every file and at run time by importing every module
 of the port (test_torch_pipeline.py runs both GPU engines so); and the host
 C++ libraries the port loads are its own builds of csrc/host/, never the
@@ -13,7 +14,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "smoothxg_tpu_torch")
-FORBIDDEN = ("jax", "smoothxg_tpu")
+FORBIDDEN = ("jax", "smoothxg_tpu", "tools", "native")
 
 
 def _port_files():
@@ -24,8 +25,9 @@ def _port_files():
 
 
 def forbidden_imports(src: str) -> list[str]:
-    """Module names of `src` that are jax or smoothxg_tpu or lie under
-    them (relative imports stay inside their own package)."""
+    """Module names of `src` that are jax, smoothxg_tpu, tools or native
+    or lie under them (relative imports stay inside their own
+    package)."""
     bad = []
     for node in ast.walk(ast.parse(src)):
         if isinstance(node, ast.Import):
@@ -47,6 +49,21 @@ def test_the_walk_sees_every_kind_of_import():
            "def f():\n    import smoothxg_tpu.cli\n")
     assert forbidden_imports(src) == ["jax", "jax.numpy", "smoothxg_tpu.ops",
                                       "smoothxg_tpu", "smoothxg_tpu.cli"]
+
+
+def test_the_walk_covers_the_ports_tools_and_flags_the_repos():
+    """The port's own tools/ (the probes, the stage profile) are walked;
+    the repository's TPU tools/ and native/ are forbidden."""
+    tools = [p for p in _port_files()
+             if p.startswith(os.path.join("smoothxg_tpu_torch", "tools"))]
+    names = {os.path.basename(p) for p in tools}
+    assert {"_probe.py", "probe_scalar_latency.py", "probe_smem.py",
+            "probe_loop.py", "probe_loop2.py", "probe_smem2.py",
+            "probe_stack.py", "profile_fused.py"} <= names
+    src = ("import tools.probe_loop2\nfrom native import x\n"
+           "from tools import probe_stack\n"
+           "from smoothxg_tpu_torch.tools import _probe\n")
+    assert forbidden_imports(src) == ["tools.probe_loop2", "native", "tools"]
 
 
 @pytest.mark.parametrize("rel", _port_files())
