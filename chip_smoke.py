@@ -36,6 +36,9 @@ result:
      code-chase CUDA kernel poa_code and its plain PyTorch version (exact
      equality), every block also held against the native engine; its time
      on phase 3's block and on a launch of 132 copies, beside poa_win's.
+     Each launch prints its geometry: POA blocks per thread block (K),
+     where the graph tables sit, the row stride LS, shared bytes and the
+     instantiation's ptxas registers (so do phases 9-11 and 13).
   9. code main path: run_smoothing with the same flags and
      TorchPOAEngine(shape=(8704, 4096)); >= 90% of the blocks on poa_code,
      GFA and MAF sha256 equal to phase 5's.
@@ -297,27 +300,17 @@ def kernel_phase(torch, dev, clock_mhz):
     from smoothxg_tpu_torch.ops.poa_win import (WinCaps, pack_blocks,
                                                 poa_win, poa_win_reference)
     from smoothxg_tpu_torch.testing.synth import make_block
+    from smoothxg_tpu_torch.tools.time_chase import (PHASE3_PLAN,
+                                                     phase3_blocks)
     rng = np.random.default_rng(SEED)
     native = TorchPOAEngine(device=dev).fallback
     tiers = TorchPOAEngine.TIERS
-    # (tier, local, banded, blocks, (min L, max L), seqs per block, div)
-    plan = [(0, True, False, 70, (150, 500), (3, 7), 0.02),
-            (0, False, False, 70, (150, 500), (3, 7), 0.02),
-            (1, True, False, 20, (300, 900), (3, 6), 0.03),
-            (1, False, False, 10, (300, 900), (3, 6), 0.03),
-            (2, True, False, 10, (1800, 2600), (3, 4), 0.01),
-            (2, False, False, 6, (1800, 2600), (3, 4), 0.01),
-            (3, True, False, 6, (3000, 3800), (2, 3), 0.01),
-            (3, False, False, 4, (3000, 3800), (2, 3), 0.01),
-            (4, False, True, 4, (3600, 4400), (5, 5), 0.01)]
     n_blocks = n_cmp = 0
     max_err = 0
-    for ti, local, banded, nb, (lo, hi), (smin, smax), div in plan:
+    for (ti, local, banded, nb, _, _, _), blocks in zip(PHASE3_PLAN,
+                                                         phase3_blocks(rng)):
         VW, LW, W = tiers[ti]
         p = POAParams(local=local, wb=311 if banded else -1)
-        blocks = [make_block(rng, int(rng.integers(lo, hi)),
-                             int(rng.integers(smin, smax + 1)), div)
-                  for _ in range(nb)]
         ins = pack_blocks([(sq, p) for sq in blocks], LW)
         caps = WinCaps(VW, LW, W, local, banded)
         torch.cuda.synchronize()
@@ -339,7 +332,8 @@ def kernel_phase(torch, dev, clock_mhz):
     if n_blocks < 200:
         fail(f"only {n_blocks} blocks compared")
 
-    # timing on a main-path block shape: 16 sequences of ~1 kb (-l 1100)
+    # timing on a main-path block shape: 16 sequences of ~1 kb (-l 1100),
+    # the draw after phase 3's blocks (tools/time_chase.timing_block)
     VW, LW, W = tiers[0]
     p = POAParams(local=True)
     blk = make_block(rng, 1000, 16, 0.01)
@@ -506,6 +500,20 @@ def round_phase(torch, dev, clock_mhz):
             "library_ms": None}
 
 
+def geometry_line(name: str, B: int, caps, LS: int) -> str:
+    """One code-chase launch's geometry: POA blocks per thread block (K),
+    grid, where the graph tables sit, row stride, dynamic shared bytes,
+    and the ptxas registers of the stage-0 instantiation it runs."""
+    from smoothxg_tpu_torch.ops import _build
+    from smoothxg_tpu_torch.ops.poa_win import geometry
+    g = geometry(name, B, caps, LS)
+    regs = used(chase_registers(_build.build_log["ptxas"]).get(
+        (name, 0, g["tables"]), ""))
+    return (f"{B} blocks at V{caps.VW}xL{caps.LW}: K {g['per_block']}, grid "
+            f"{g['grid']}, tables in {g['tables']} memory, LS {LS}, "
+            f"{g['smem']} B shared, {regs} registers")
+
+
 def chase_phase(torch, dev, clock_mhz, name: str, timing: dict):
     """Phases 8 and 10: poa_code or poa_stacked against its plain version
     and the native engine on >= 200 seeded blocks, then timed on phase 3's
@@ -518,7 +526,7 @@ def chase_phase(torch, dev, clock_mhz, name: str, timing: dict):
     from smoothxg_tpu_torch.ops.poa_stacked import (poa_stacked,
                                                     poa_stacked_reference,
                                                     stacked_caps)
-    from smoothxg_tpu_torch.ops.poa_win import pack_blocks
+    from smoothxg_tpu_torch.ops.poa_win import pack_blocks, row_stride
     from smoothxg_tpu_torch.testing.synth import make_block, make_fan_in_block
     if name == "poa_code":
         kern, ref, held, big = poa_code, poa_code_reference, 8, (8704, 4096)
@@ -566,7 +574,8 @@ def chase_phase(torch, dev, clock_mhz, name: str, timing: dict):
         n_blocks += len(blocks)
         say(f"{label}: {len(blocks)} blocks equal to the plain version "
             f"({sum(flags)} flagged for the native redo), "
-            f"{len(blocks) - sum(flags)} equal to native")
+            f"{len(blocks) - sum(flags)} equal to native; geometry "
+            + geometry_line(name, len(blocks), caps, row_stride(ins[1], LW)))
     if n_blocks < 200:
         fail(f"only {n_blocks} blocks compared")
 
@@ -592,6 +601,10 @@ def chase_phase(torch, dev, clock_mhz, name: str, timing: dict):
     cells, pcells = win_dp_work(blk, [want[2][0, r, :len(s)].tolist()
                                       for r, s in enumerate(blk)])
     bound_ms = int32_bound_ms(fill_ops(cells, pcells, True), clock_mhz)
+    for B, c in ((1, caps), (132, caps),
+                 (FULL_COPIES, mkcaps(*FULL_CAPS, True, False))):
+        say(f"{name} timing geometry: " + geometry_line(
+            name, B, c, row_stride(cpu_ins[1], c.LW)))
     say(f"{name} timing on phase 3's block (V={int(want[0][0, 0])}, caps "
         f"V4352xL2048): kernel {ms:.3f} ms vs poa_win {timing['ms']:.3f} ms;"
         f" 132-block launch {batch_ms:.1f} ms ({132e3 / batch_ms:.1f} "
@@ -614,6 +627,7 @@ def block_main_path(tag: str, own: str, run, clock_mhz) -> int:
     each block's sequences and final paths for the DP work of the launches
     (read after the wall is taken).  Returns the kernel's launches."""
     from smoothxg_tpu_torch.ops.poa_engine import TorchPOAEngine
+    from smoothxg_tpu_torch.ops.poa_win import stride_for
     seen = []
     batch = TorchPOAEngine.poa_block_batch
 
@@ -623,7 +637,22 @@ def block_main_path(tag: str, own: str, run, clock_mhz) -> int:
                     for b, g in zip(blocks, graphs))
         return graphs
 
+    # each code-chase launch's geometry, counted by kind
+    geos: dict = {}
+    launch = TorchPOAEngine._launch
+
+    def launch_spy(self, blocks, chunk, ti, local, banded):
+        out = launch(self, blocks, chunk, ti, local, banded)
+        if self.kernel != "win":
+            VW, LW, W = self.tiers[ti]
+            line = geometry_line(own, len(chunk),
+                                 self._kernel(VW, LW, W, local, banded)[1],
+                                 stride_for(out[4], LW))
+            geos[line] = geos.get(line, 0) + 1
+        return out
+
     TorchPOAEngine.poa_block_batch = spy
+    TorchPOAEngine._launch = launch_spy
     log = Tee(sys.stderr)
     t0 = time.perf_counter()
     try:
@@ -631,6 +660,7 @@ def block_main_path(tag: str, own: str, run, clock_mhz) -> int:
             (rc, engine), launches = drive(run, own)
     finally:
         TorchPOAEngine.poa_block_batch = batch
+        TorchPOAEngine._launch = launch
     wall = time.perf_counter() - t0
     if rc != 0:
         fail(f"{tag} exited {rc}")
@@ -645,6 +675,9 @@ def block_main_path(tag: str, own: str, run, clock_mhz) -> int:
         f"stats {json.dumps(st)}; {own} launches {launches}; DP work of "
         f"its {len(seen)} blocks {cells} cells, {pcells} extra pred cells, "
         f"bound {bound:.3f} ms")
+    if geos:
+        say(f"{tag} launch geometry: " + "; ".join(
+            f"{n} x [{line}]" for line, n in geos.items()))
     if st["device_blocks"] < 0.9 * total:
         fail(f"{tag}: only {st['device_blocks']}/{total} blocks ran on "
              f"the GPU")
@@ -757,7 +790,7 @@ def stage_phase(torch, dev, timing: dict) -> None:
     from smoothxg_tpu_torch.ops.poa_stacked import (poa_stacked,
                                                     poa_stacked_reference,
                                                     stacked_caps)
-    from smoothxg_tpu_torch.ops.poa_win import pack_blocks
+    from smoothxg_tpu_torch.ops.poa_win import pack_blocks, row_stride
     from smoothxg_tpu_torch.tools.profile_fused import (format_split,
                                                         time_stages)
     blk = timing["block"]
@@ -787,7 +820,11 @@ def stage_phase(torch, dev, timing: dict) -> None:
                     fail(f"{name} stage {st}: the copies differ")
             say(f"{name} stage 0 == phase {8 if name == 'poa_code' else 10}"
                 f"'s outputs; stages 1, 2 == their plain versions (max abs "
-                f"err 0) on the timing block and its {STAGE_COPIES} copies")
+                f"err 0) on the timing block and its {STAGE_COPIES} copies; "
+                f"geometry " + "; ".join(
+                    geometry_line(name, B, caps, row_stride(cpu_ins[1],
+                                                            2048))
+                    for B in (1, STAGE_COPIES)))
             say(format_split(f"{name} timing block (V "
                              f"{int(timing[name + '_out'][0][0, 0])})",
                              time_stages(kern, ins, caps, stages, reps=3)))
@@ -812,22 +849,45 @@ def ptxas_registers(log: str) -> dict:
     return regs
 
 
+def used(report: str) -> int:
+    """The register count of a ptxas report line, -1 without one."""
+    return int(report.split("Used ")[1].split()[0]) if "Used " in report \
+        else -1
+
+
+def chase_registers(log: str) -> dict:
+    """{(kernel, stage, tables 'shared' / 'device'): ptxas report} of the
+    code-chase kernels' instantiations poa_<x>_kernel<STAGE,
+    SMEM_TABLES>."""
+    out = {}
+    for e, r in ptxas_registers(log).items():
+        for name in ("poa_code", "poa_stacked"):
+            tag = f"{name}_kernelILi"
+            if tag in e:
+                stage, rest = e.split(tag)[1].split("E", 1)
+                tables = "shared" if rest.startswith("Lb1") else "device"
+                out[(name, int(stage), tables)] = r
+    return out
+
+
 def build_summary(log: str) -> str:
     """Each POA kernel's registers (the code-chase kernels' stage-0
-    instantiation first, then every stage's count), and each probe
-    family's register range."""
+    instantiations with the graph tables in device and in shared memory
+    first, then every stage's count), and each probe family's register
+    range."""
     regs = ptxas_registers(log)
-
-    def used(r):
-        return int(r.split("Used ")[1].split()[0]) if "Used " in r else -1
+    chase = chase_registers(log)
     parts = []
     for name in KERNELS[:4]:
         own = {e: r for e, r in regs.items() if f"{name}_kernel" in e}
-        stage = {int(e.split(f"{name}_kernelILi")[1].split("E")[0]): r
-                 for e, r in own.items() if f"{name}_kernelILi" in e}
-        if stage:
-            parts.append(f"{name}_kernel stage 0: {stage.get(0, '?')} "
-                         f"(stages {', '.join(f'{k}: {used(v)}' for k, v in sorted(stage.items()))})")
+        mine = {k[1:]: r for k, r in chase.items() if k[0] == name}
+        if mine:
+            parts.append(
+                f"{name}_kernel stage 0: device tables "
+                f"{mine.get((0, 'device'), '?')}; shared tables "
+                f"{mine.get((0, 'shared'), '?')} (stages "
+                + ", ".join(f"{st}/{t[0]}: {used(r)}"
+                            for (st, t), r in sorted(mine.items())) + ")")
         else:
             parts.append(f"{name}_kernel: "
                          f"{next(iter(own.values()), 'ptxas: no report')}")

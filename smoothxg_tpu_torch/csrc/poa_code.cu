@@ -20,18 +20,27 @@
 // traceback then reads one word per step instead of re-reading H and E
 // of every predecessor slot.  The TPU kernel also stores Hq; its traceback
 // never reads it, so this kernel does not: H, E1, E2 and CODE are 16 bytes
-// per cell, in device memory.
+// per cell, in device memory, at the launch's row stride LS (the batch's
+// longest sequence + 1, rounded up to 32 columns) rather than the caps' LW.
 //
-// What bounds it on this card: as poa_win.cu, latency, not bytes or
-// operations — per row a few dependent L2 round trips for the row's
-// metadata and predecessor rows, a block-wide prefix max for the F
-// channels and a barrier; per round a scalar walk, traceback and threading
-// in thread 0.  The code chase shortens the traceback's chain of
-// dependent loads to one per step (plus the F origin scan, one load per
-// column) and costs the fill the slot tracking and the code word; the
-// per-row barriers are unchanged, so timing this kernel beside poa_win.cu
-// on the same block weighs what the chase saves against what the codes
-// cost.
+// What bounds it on this card: latency, not bytes or operations — per row
+// the predecessor rows' L2 round trip, a block-wide prefix max for the F
+// channels and two barriers; per round a scalar walk, traceback and
+// threading in thread 0.  The design:
+//   * planes at LS, so a launch's scratch follows its sequences and the
+//     engine fits ~4x more blocks into a launch at the main path's ~1.1 kb;
+//   * at most 128 registers (slot fields packed 3 bits a column, the
+//     predecessor loop unrolled over the 8 slots, no local arrays), so two
+//     256-thread blocks share an SM and cover each other's barriers;
+//   * each thread reads its 8 columns of a predecessor row as two int4
+//     loads per plane, and the next row's metadata (count, base, band,
+//     predecessor rows: one level of loads, all independent) is issued
+//     before this row's scan, so a row's predecessor loads start at once;
+//   * the graph tables (poa_graph.cuh, 45 B a node) sit in shared memory
+//     when they fit beside the launch's blocks per SM, so the walk, chase
+//     and threading in thread 0 step through shared memory instead of L2.
+// The row-end barrier stays: the next row reads this row's H at each
+// thread's left neighbour, written by another thread.
 // Scores are int32 with the floor NEG = -2^30 (no int16 clamp).
 //
 // STAGE is _pallas_core's profiling knob (poa_pallas_fused.py:86-93), a
@@ -58,17 +67,63 @@ namespace {
 
 using CL = CodeLayout<7>;
 constexpr int PCAP_MAX = 8;
+constexpr int STATIC_SMEM = 1024;    // above the kernel's static buffers
 
-// Per-block scratch: the graph tables (poa_graph.cuh), then the DP planes
-// H E1 E2 CODE, each (VW + 1) x LW int32 — mirrored by
-// CodeCaps.scratch_words in ops/poa_code.py.
-template <int STAGE>
-__global__ void __launch_bounds__(NT)
+// device scratch of one POA block: the graph tables (used when they stay
+// in device memory), then the int32 planes H E1 E2 CODE, each (VW + 1) x
+// LS — mirrored by CodeCaps.scratch_words in ops/poa_code.py
+__host__ __device__ inline size_t block_bytes(size_t v1, int pcap, int LS,
+                                              int banded) {
+    return table_bytes(v1, pcap, LS, banded) + 16 * v1 * (size_t)LS;
+}
+
+// a row's metadata: predecessor count, node base, band, and the
+// predecessor rows, two int16 a word (slots past the count are stale)
+struct RowMeta {
+    int np, bv, blo, bhi;
+    int pr[PCAP_MAX / 2];
+};
+
+__device__ __forceinline__ RowMeta row_meta(const Tables& k, int i, int L,
+                                            int pcap, int banded) {
+    RowMeta r;
+    r.np = k.rnp[i];
+    r.bv = k.rbase[i];
+    r.blo = banded ? k.rlo[i] : 0;
+    r.bhi = banded ? k.rhi[i] : L;
+    const int16_t* rp = k.rpreds + (size_t)i * pcap;
+#pragma unroll
+    for (int p = 0; p < PCAP_MAX; p += 2) {
+        const int lo = p < pcap ? (uint16_t)rp[p] : 0;
+        const int hi = p + 1 < pcap ? (uint16_t)rp[p + 1] : 0;
+        r.pr[p / 2] = lo | (hi << 16);
+    }
+    return r;
+}
+
+// predecessor row of slot p (row 0, the virtual source, without any)
+__device__ __forceinline__ int meta_row(const RowMeta& r, int p) {
+    return r.np > 0 ? (r.pr[p >> 1] >> (16 * (p & 1))) & 0xFFFF : 0;
+}
+
+__device__ __forceinline__ int part(const int4& v, int c) {
+    return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ int slot3(unsigned s, int x) {
+    return (int)(s >> (3 * x)) & 7;
+}
+
+template <int STAGE, bool SMEM_TABLES>
+__global__ void __launch_bounds__(NT, 2)
 poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen,
                 const int32_t* __restrict__ nseq, const int32_t* __restrict__ params,
-                int32_t* meta, int32_t* exp_, int32_t* paths, int32_t* scratch,
-                int RW, int LW, int VW, int pcap, int local, int banded) {
-    extern __shared__ int8_t s_seq[];        // the round's sequence, LW bytes
+                int32_t* meta, int32_t* exp_, int32_t* paths, int8_t* scratch,
+                int RW, int LW, int VW, int pcap, int LS, int local,
+                int banded) {
+    // dynamic: the tables (when in shared memory), then the round's
+    // sequence (LS bytes)
+    extern __shared__ int4 s_dyn[];
     __shared__ int s_w1[2][NWARP], s_w2[2][NWARP];
     __shared__ int s_rv[NWARP], s_rr[NWARP];
     __shared__ int s_ovf, s_V, s_Vc, s_head, s_gs, s_D;
@@ -76,10 +131,14 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
     const int b = blockIdx.x;
     const int tid = threadIdx.x;
     const size_t v1 = (size_t)VW + 1;
-    const size_t plane = v1 * (size_t)LW;
-    int32_t* sc = scratch + (size_t)b * (graph_words(v1, pcap, LW) + 4 * plane);
-    Graph k;
-    int32_t* H = graph_carve(k, sc, v1, pcap, LW);
+    const size_t tb = table_bytes(v1, pcap, LS, banded);
+    const size_t plane = v1 * (size_t)LS;
+    int8_t* sm = (int8_t*)s_dyn;
+    int8_t* sc = scratch + (size_t)b * block_bytes(v1, pcap, LS, banded);
+    Tables k;
+    graph_carve(k, SMEM_TABLES ? sm : sc, v1, pcap, LS, banded);
+    int8_t* s_seq = sm + (SMEM_TABLES ? tb : 0);
+    int32_t* H = (int32_t*)(sc + tb);
     int32_t* E1 = H + plane;
     int32_t* E2 = E1 + plane;
     int32_t* CC = E2 + plane;
@@ -96,19 +155,20 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
     for (size_t x = tid; x < (size_t)RW * LW; x += NT) bpaths[x] = -1;
     __syncthreads();
 
-    // ---- capacity check (every thread computes the same verdict) ----
+    // ---- capacity check (every thread computes the same verdict; LS is
+    // above every length that fits LW, see poa_code_launch) ----
     int ovf = (R < 1 || R > RW);
     int L0 = 0;
     if (!ovf) {
         L0 = lens[0];
         int maxL = 0;
         for (int r = 0; r < R; ++r) maxL = max(maxL, lens[r]);
-        ovf = L0 < 1 || L0 > VW || maxL > LW - 1;
+        ovf = L0 < 1 || L0 > VW || maxL > LW - 1 || maxL > LS - 1;
     }
     if (tid == 0) { s_ovf = ovf; s_Vc = L0; s_head = 0; s_gs = 0; }
     if (!ovf) {
         // row 0: the virtual source
-        for (int j = tid; j < LW; j += NT) {
+        for (int j = tid; j < LS; j += NT) {
             H[j] = (local || j == 0) ? 0
                  : max(-(g + (j - 1) * e), -(q + (j - 1) * c));
             E1[j] = NEG; E2[j] = NEG; CC[j] = 0;
@@ -132,29 +192,22 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
         if (banded) {
             if (tid == 0) s_D = band_ranks(k, V);
             __syncthreads();
+            band_rows_par(k, V, L, wb + (wfm * L) / 1000, s_D, tid, NT);
+            __syncthreads();
         }
-        band_rows_par(k, V, L, banded, wb + (wfm * L) / 1000,
-                      banded ? s_D : 0, tid, NT);
-        __syncthreads();
 
         // ---- DP fill, one row per topological position ----
         int tbest = INT_MIN, trow = 0;        // local end cell, per thread
         int buf = 0;
+        RowMeta cur = row_meta(k, 1, L, pcap, banded), nxt = cur;
         for (int i = 1; i <= V; ++i) {
-            const int v = k.rnode[i];
-            const int np = k.rnp[i];
-            const int bv = k.base[v];
-            const int blo = k.rlo[i], bhi = k.rhi[i];
-            int prow[PCAP_MAX];
-            const int npr = np > 0 ? np : 1;
-            for (int p = 0; p < (STAGE == 7 ? 0 : npr); ++p)
-                prow[p] = pred_row(k, i, p);
+            const int npr = cur.np > 0 ? cur.np : 1;
             int carry1 = NEG, carry2 = NEG;
             int rowbest = INT_MIN;
-            int32_t* Hi = H + (size_t)i * LW;
-            int32_t* E1i = E1 + (size_t)i * LW;
-            int32_t* E2i = E2 + (size_t)i * LW;
-            int32_t* Ci = CC + (size_t)i * LW;
+            int32_t* Hi = H + (size_t)i * LS;
+            int32_t* E1i = E1 + (size_t)i * LS;
+            int32_t* E2i = E2 + (size_t)i * LS;
+            int32_t* Ci = CC + (size_t)i * LS;
             for (int t0 = 0; t0 <= L; t0 += TILE) {
                 const int jb = t0 + tid * CPT;
                 int hq[CPT], cw[CPT];
@@ -162,61 +215,96 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
                 if (jb <= L) {
                     // predecessor maxima of H at columns jb-1 .. jb+CPT-1
                     // and of E1, E2 at jb .. jb+CPT-1, each with the first
-                    // slot that holds it
-                    int hp[CPT + 1], hs[CPT + 1];
-                    int x1[CPT], s1[CPT], x2[CPT], s2[CPT];
+                    // slot that holds it (3 bits a column)
+                    int hp[CPT + 1], x1[CPT], x2[CPT];
+                    unsigned hs = 0, s1 = 0, s2 = 0;
                     if (STAGE == 7) {     // no predecessor-slot loop
-                        for (int x = 0; x <= CPT; ++x) {
-                            hp[x] = NEG + npr; hs[x] = 0;
+#pragma unroll
+                        for (int x = 0; x <= CPT; ++x) hp[x] = NEG + npr;
+#pragma unroll
+                        for (int x = 0; x < CPT; ++x) { x1[x] = NEG; x2[x] = NEG; }
+                    }
+#pragma unroll
+                    for (int p = 0; p < PCAP_MAX; ++p) {
+                        if (STAGE == 7 || p >= npr) break;
+                        const int32_t* rb = H + (size_t)meta_row(cur, p) * LS
+                                          + jb;
+                        const int4 a0 = ((const int4*)rb)[0];
+                        const int4 a1 = ((const int4*)rb)[1];
+                        const int4 b0 = ((const int4*)(rb + plane))[0];
+                        const int4 b1 = ((const int4*)(rb + plane))[1];
+                        const int4 d0 = ((const int4*)(rb + 2 * plane))[0];
+                        const int4 d1 = ((const int4*)(rb + 2 * plane))[1];
+                        const int hl = jb > 0 ? rb[-1] : NEG;
+                        if (p == 0 || hl > hp[0]) {
+                            hp[0] = hl;
+                            hs = (hs & ~7u) | (unsigned)p;
                         }
+#pragma unroll
                         for (int x = 0; x < CPT; ++x) {
-                            x1[x] = NEG; s1[x] = 0; x2[x] = NEG; s2[x] = 0;
+                            const int h = part(x < 4 ? a0 : a1, x & 3);
+                            const int y1 = part(x < 4 ? b0 : b1, x & 3);
+                            const int y2 = part(x < 4 ? d0 : d1, x & 3);
+                            const unsigned clr = ~(7u << (3 * x)),
+                                           set = (unsigned)p << (3 * x);
+                            if (p == 0) {
+                                hp[x + 1] = h; x1[x] = y1; x2[x] = y2;
+                                continue;
+                            }
+                            if (h > hp[x + 1]) {
+                                hp[x + 1] = h;
+                                hs = (hs & ~(7u << (3 * x + 3)))
+                                   | ((unsigned)p << (3 * x + 3));
+                            }
+                            if (y1 > x1[x]) { x1[x] = y1; s1 = (s1 & clr) | set; }
+                            if (y2 > x2[x]) { x2[x] = y2; s2 = (s2 & clr) | set; }
                         }
                     }
-                    for (int p = 0; p < (STAGE == 7 ? 0 : npr); ++p) {
-                        const size_t rb = (size_t)prow[p] * LW;
-                        for (int x = 0; x <= CPT; ++x) {
-                            const int j = jb - 1 + x;
-                            const int h = (j >= 0 && j <= L) ? H[rb + j] : NEG;
-                            if (p == 0 || h > hp[x]) { hp[x] = h; hs[x] = p; }
-                        }
-                        for (int x = 0; x < CPT; ++x) {
-                            const int j = jb + x;
-                            const int a = j <= L ? E1[rb + j] : NEG;
-                            const int d = j <= L ? E2[rb + j] : NEG;
-                            if (p == 0 || a > x1[x]) { x1[x] = a; s1[x] = p; }
-                            if (p == 0 || d > x2[x]) { x2[x] = d; s2[x] = p; }
-                        }
-                    }
+#pragma unroll
                     for (int x = 0; x < CPT; ++x) {
                         const int j = jb + x;
-                        if (j > L) { hq[x] = NEG; cw[x] = 0; continue; }
-                        const int M = j == 0 ? NEG
-                            : hp[x] + ((int)s_seq[j - 1] == bv ? m : -n);
-                        const int o1 = hp[x + 1] - g, x1e = x1[x] - e;
-                        const int o2 = hp[x + 1] - q, x2e = x2[x] - c;
-                        const int op1 = o1 >= x1e, op2 = o2 >= x2e;
-                        int e1 = max(max(o1, x1e), NEG);
-                        int e2 = max(max(o2, x2e), NEG);
-                        int h = max(M, max(e1, e2));
-                        int code = hs[x]
-                            | ((op1 ? hs[x + 1] : s1[x]) << CL::E1S)
-                            | (op1 << CL::E1O)
-                            | ((op2 ? hs[x + 1] : s2[x]) << CL::E2S)
-                            | (op2 << CL::E2O);
-                        if (local) {
-                            h = max(h, 0);
-                            code |= (h == 0) << CL::HQZ;
+                        int e1 = NEG, e2 = NEG;
+                        hq[x] = NEG;
+                        cw[x] = 0;
+                        if (j <= L) {
+                            const int M = j == 0 ? NEG
+                                : hp[x] + ((int)s_seq[j - 1] == cur.bv ? m : -n);
+                            const int o1 = hp[x + 1] - g, x1e = x1[x] - e;
+                            const int o2 = hp[x + 1] - q, x2e = x2[x] - c;
+                            const int op1 = o1 >= x1e, op2 = o2 >= x2e;
+                            e1 = max(max(o1, x1e), NEG);
+                            e2 = max(max(o2, x2e), NEG);
+                            int h = max(M, max(e1, e2));
+                            const int hsn = slot3(hs, x + 1);
+                            int code = slot3(hs, x)
+                                | ((op1 ? hsn : slot3(s1, x)) << CL::E1S)
+                                | (op1 << CL::E1O)
+                                | ((op2 ? hsn : slot3(s2, x)) << CL::E2S)
+                                | (op2 << CL::E2O);
+                            if (local) {
+                                h = max(h, 0);
+                                code |= (h == 0) << CL::HQZ;
+                            }
+                            code |= (M == h ? 0 : (e1 == h ? 1 : 2)) << CL::SEL;
+                            if (j < cur.blo || j > cur.bhi) {
+                                h = NEG; e1 = NEG; e2 = NEG;
+                            }
+                            hq[x] = h;
+                            cw[x] = code;
+                            t1 = max(t1, h + e * j);
+                            t2 = max(t2, h + c * j);
                         }
-                        code |= (M == h ? 0 : (e1 == h ? 1 : 2)) << CL::SEL;
-                        if (j < blo || j > bhi) { h = NEG; e1 = NEG; e2 = NEG; }
-                        hq[x] = h;
-                        cw[x] = code;
-                        E1i[j] = e1; E2i[j] = e2;
-                        t1 = max(t1, h + e * j);
-                        t2 = max(t2, h + c * j);
+                        x1[x] = e1;
+                        x2[x] = e2;
                     }
+                    ((int4*)(E1i + jb))[0] = make_int4(x1[0], x1[1], x1[2], x1[3]);
+                    ((int4*)(E1i + jb))[1] = make_int4(x1[4], x1[5], x1[6], x1[7]);
+                    ((int4*)(E2i + jb))[0] = make_int4(x2[0], x2[1], x2[2], x2[3]);
+                    ((int4*)(E2i + jb))[1] = make_int4(x2[4], x2[5], x2[6], x2[7]);
                 }
+                // the next row's metadata, one level of independent loads
+                // that land while this row scans and finishes
+                if (t0 == 0 && i < V) nxt = row_meta(k, i + 1, L, pcap, banded);
                 // block-wide exclusive prefix max of the thread totals
                 int ex1 = INT_MIN, ex2 = INT_MIN, tot1 = INT_MIN,
                     tot2 = INT_MIN;
@@ -225,9 +313,12 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
                                     s_w2[buf]);
                 int g1 = max(carry1, ex1), g2 = max(carry2, ex2);
                 if (jb <= L) {
+                    int hv[CPT];
+#pragma unroll
                     for (int x = 0; x < CPT; ++x) {
                         const int j = jb + x;
-                        if (j > L) break;
+                        hv[x] = NEG;
+                        if (j > L) { cw[x] = 0; continue; }
                         const int h0 = hq[x];
                         int f1 = NEG, f2 = NEG;
                         if (STAGE == 5) {         // no F scan: H = Hq
@@ -242,15 +333,18 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
                                   n2 = STAGE == 5 || u2 >= g2;
                         g1 = max(g1, u1);
                         g2 = max(g2, u2);
-                        if (j < blo || j > bhi) h = NEG;
+                        if (j < cur.blo || j > cur.bhi) h = NEG;
                         else rowbest = max(rowbest, h);
-                        Hi[j] = h;
-                        if (STAGE != 6) {         // 6: no code word
-                            Ci[j] = cw[x] | ((h0 == h) << CL::HQEQ)
-                                | ((f1 == h) << CL::F1H)
-                                | ((f2 == h) << CL::F2H)
-                                | (n1 << CL::F1N) | (n2 << CL::F2N);
-                        }
+                        hv[x] = h;
+                        cw[x] |= ((h0 == h) << CL::HQEQ)
+                            | ((f1 == h) << CL::F1H) | ((f2 == h) << CL::F2H)
+                            | (n1 << CL::F1N) | (n2 << CL::F2N);
+                    }
+                    ((int4*)(Hi + jb))[0] = make_int4(hv[0], hv[1], hv[2], hv[3]);
+                    ((int4*)(Hi + jb))[1] = make_int4(hv[4], hv[5], hv[6], hv[7]);
+                    if (STAGE != 6) {             // 6: no code word
+                        ((int4*)(Ci + jb))[0] = make_int4(cw[0], cw[1], cw[2], cw[3]);
+                        ((int4*)(Ci + jb))[1] = make_int4(cw[4], cw[5], cw[6], cw[7]);
                     }
                 }
                 carry1 = max(carry1, tot1);
@@ -258,6 +352,7 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
                 buf ^= 1;
             }
             if (rowbest > tbest) { tbest = rowbest; trow = i; }
+            cur = nxt;
             __syncthreads();
         }
 
@@ -271,7 +366,7 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
             int hb = NEG - 1, hr = 0;
             for (int i = 1 + tid; i <= V; i += NT) {
                 if (k.nsucc[k.rnode[i]] != 0) continue;
-                const int h = H[(size_t)i * LW + L];
+                const int h = H[(size_t)i * LS + L];
                 if (h > hb) { hb = h; hr = i; }
             }
             if (hr == 0) hr = INT_MAX;           // no sink in this thread
@@ -282,18 +377,20 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
 
         // ---- code chase, then threading (thread 0, no barrier between:
         // s_ovf is read by the other threads only after the round's end
-        // barrier); stages 1 and 5-7 stop at the end cell ----
-        if (tid == 0 && STAGE != 1 && STAGE < 5) {
-            int o = 0;
-            if (have) {
-                if (local) {
-                    const int32_t* row = H + (size_t)ei * LW;
-                    int j = 0;
-                    while (row[j] != tbest) ++j;
-                    ej = j;
-                }
-                o = code_chase<7>(k, CC, LW, ei, ej, local);
+        // barrier); stages 1 and 5-7 stop at the end cell.  The local end
+        // cell's column, the first holding the best, is found by warp 0,
+        // 32 columns a step ----
+        if (tid < 32 && STAGE != 1 && STAGE < 5 && local && have) {
+            const int32_t* row = H + (size_t)ei * LS;
+            for (int c0 = 0; c0 <= L; c0 += 32) {
+                const int j = c0 + tid;
+                const unsigned hit =
+                    __ballot_sync(FULL, j <= L && row[j] == tbest);
+                if (hit) { ej = c0 + __ffs(hit) - 1; break; }
             }
+        }
+        if (tid == 0 && STAGE != 1 && STAGE < 5) {
+            int o = have ? code_chase<7>(k, CC, LS, ei, ej, local) : 0;
             if (!o && STAGE != 2) {
                 int Vc = s_Vc, head = s_head, gs = s_gs;
                 o = thread_seq<STAGE>(k, s_seq, L, VW, Vc, head, gs,
@@ -322,52 +419,107 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
     }
 }
 
-constexpr int STAGES = 8;
-
-template <int S>
-int launch_stage(const void* seqs, const void* slen, const void* nseq,
-                 const void* params, void* meta, void* exp_, void* paths,
-                 void* scratch, int B, int RW, int LW, int VW, int pcap,
-                 int local, int banded, size_t smem, cudaStream_t stream) {
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            poa_code_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    poa_code_kernel<S><<<B, NT, smem, stream>>>(
-        (const int8_t*)seqs, (const int32_t*)slen, (const int32_t*)nseq,
-        (const int32_t*)params, (int32_t*)meta, (int32_t*)exp_,
-        (int32_t*)paths, (int32_t*)scratch, RW, LW, VW, pcap, local, banded);
-    return (int)cudaGetLastError();
+// One POA block a thread block; two thread blocks an SM once the batch
+// outnumbers the SMs, else one.  The tables in shared memory when they fit
+// beside the sequence in that share of the SM, else in device scratch.
+// Decided before the launch, from the device's limits.
+inline cudaError_t code_geometry(int B, int VW, int pcap, int LS,
+                                 int banded, Geometry& g) {
+    int sms = 0, smem_block = 0, smem_sm = 0;
+    const cudaError_t err = device_limits(sms, smem_block, smem_sm);
+    if (err != cudaSuccess) return err;
+    const int per_sm = B > sms ? 2 : 1;
+    long budget = smem_sm / per_sm - 1024;         // 1 KB per block reserved
+    if (budget > smem_block) budget = smem_block;
+    budget -= STATIC_SMEM;
+    const size_t tb = table_bytes((size_t)VW + 1, pcap, LS, banded);
+    if ((long)LS > budget) return cudaErrorInvalidValue;
+    g.tables = (long)(tb + LS) <= budget;
+    g.per_block = 1;
+    g.grid = B;
+    g.smem = (int)(LS + (g.tables ? tb : 0));
+    return cudaSuccess;
 }
 
-using LaunchFn = int (*)(const void*, const void*, const void*, const void*,
-                         void*, void*, void*, void*, int, int, int, int, int,
-                         int, int, size_t, cudaStream_t);
-constexpr LaunchFn STAGE_LAUNCH[STAGES] = {
-    launch_stage<0>, launch_stage<1>, launch_stage<2>, launch_stage<3>,
-    launch_stage<4>, launch_stage<5>, launch_stage<6>, launch_stage<7>};
+constexpr int STAGES = 8;
+
+template <int S, bool T>
+cudaError_t launch_stage(const Geometry& geo, const void* seqs,
+                         const void* slen, const void* nseq,
+                         const void* params, void* meta, void* exp_,
+                         void* paths, void* scratch, int RW, int LW, int VW,
+                         int pcap, int LS, int local, int banded,
+                         cudaStream_t stream) {
+    if (geo.smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            poa_code_kernel<S, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            geo.smem);
+        if (err != cudaSuccess) return err;
+    }
+    poa_code_kernel<S, T><<<geo.grid, NT, geo.smem, stream>>>(
+        (const int8_t*)seqs, (const int32_t*)slen, (const int32_t*)nseq,
+        (const int32_t*)params, (int32_t*)meta, (int32_t*)exp_,
+        (int32_t*)paths, (int8_t*)scratch, RW, LW, VW, pcap, LS, local,
+        banded);
+    return cudaGetLastError();
+}
+
+using LaunchFn = cudaError_t (*)(const Geometry&, const void*, const void*,
+                                 const void*, const void*, void*, void*,
+                                 void*, void*, int, int, int, int, int, int,
+                                 int, cudaStream_t);
+constexpr LaunchFn STAGE_LAUNCH[STAGES][2] = {
+    {launch_stage<0, false>, launch_stage<0, true>},
+    {launch_stage<1, false>, launch_stage<1, true>},
+    {launch_stage<2, false>, launch_stage<2, true>},
+    {launch_stage<3, false>, launch_stage<3, true>},
+    {launch_stage<4, false>, launch_stage<4, true>},
+    {launch_stage<5, false>, launch_stage<5, true>},
+    {launch_stage<6, false>, launch_stage<6, true>},
+    {launch_stage<7, false>, launch_stage<7, true>}};
+
+inline bool bad_shape(int VW, int pcap, int LS) {
+    return pcap < 1 || pcap > PCAP_MAX || VW < 1 || VW > VW_MAX ||
+           LS < 32 || LS % 32 != 0;
+}
 
 }  // namespace
 
 extern "C" {
 
+// The launch geometry of `B` POA blocks at these capacities and row
+// stride on the current device: out = (POA blocks per thread block (1),
+// grid, dynamic shared bytes, tables in shared memory).  Returns a CUDA
+// error.
+int poa_code_geometry(int B, int VW, int pcap, int LS, int banded,
+                      int* out) {
+    if (B <= 0 || bad_shape(VW, pcap, LS)) return (int)cudaErrorInvalidValue;
+    Geometry g;
+    const cudaError_t err = code_geometry(B, VW, pcap, LS, banded, g);
+    if (err == cudaSuccess) geometry_out(g, out);
+    return (int)err;
+}
+
 // Launch stage `stage` (0 = the kernel; 1-7 the profiling cuts above) on
-// `stream` (PyTorch's current stream).  Returns cudaGetLastError() after
-// the launch: nonzero means the launch was refused or an earlier
-// asynchronous fault is pending, and the caller raises.
+// `stream` (PyTorch's current stream) in the geometry above, with DP rows
+// of LS columns (a multiple of 32 above every sequence length that fits
+// LW, ops/poa_win.py:row_stride) and `scratch` holding B blocks of
+// block_bytes.  Returns cudaGetLastError() after the launch: nonzero means
+// the launch was refused or an earlier asynchronous fault is pending, and
+// the caller raises.
 int poa_code_launch(const void* seqs, const void* slen, const void* nseq,
                     const void* params, void* meta, void* exp_, void* paths,
                     void* scratch, int B, int RW, int LW, int VW, int pcap,
-                    int stage, int local, int banded, void* stream) {
+                    int stage, int LS, int local, int banded, void* stream) {
     if (B <= 0) return 0;
-    if (pcap < 1 || pcap > PCAP_MAX || stage < 0 || stage >= STAGES)
+    if (bad_shape(VW, pcap, LS) || stage < 0 || stage >= STAGES)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = ((size_t)LW + 15) & ~(size_t)15;
-    return STAGE_LAUNCH[stage](seqs, slen, nseq, params, meta, exp_, paths,
-                         scratch, B, RW, LW, VW, pcap, local, banded, smem,
-                         (cudaStream_t)stream);
+    Geometry geo;
+    const cudaError_t err = code_geometry(B, VW, pcap, LS, banded, geo);
+    if (err != cudaSuccess) return (int)err;
+    return (int)STAGE_LAUNCH[stage][geo.tables](
+        geo, seqs, slen, nseq, params, meta, exp_, paths, scratch, RW, LW,
+        VW, pcap, LS, local, banded, (cudaStream_t)stream);
 }
 
 }  // extern "C"

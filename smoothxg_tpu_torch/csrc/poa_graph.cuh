@@ -1,12 +1,23 @@
-// poa_graph.cuh — the graph side of the code-chase whole-block POA kernels
+// poa_graph.cuh — the graph side of the whole-block POA kernels
 // (poa_code.cu: one thread block per POA block; poa_stacked.cu: one warp
-// per POA block): the per-block scratch tables, the seed chain, the
-// topological walk, the rank band, the code word and its chase, the
-// guarded aligned-ring threading and the export.  The semantics are
-// poa_win.cu's (FusedPOA + ops/poa_host), written once for both kernels.
-// Routines named *_par are run by every thread of a group (`first` is the
-// thread's rank in the group, `stride` the group's size); the others by one
-// thread.
+// per POA block; poa_win.cu, the windowed kernel): the per-block graph
+// tables, the seed chain, the topological walk, the rank band, the code
+// word and its chase, the guarded aligned-ring threading, the export, and
+// the launch geometry the code-chase kernels take from the device.  The
+// semantics are FusedPOA's (+ ops/poa_host), written once for all three
+// kernels.  Routines named *_par are run by every thread of a group
+// (`first` is the thread's rank in the group, `stride` the group's size);
+// the others by one thread.
+//
+// Two table layouts, one set of routines (templates on the layout):
+// `Graph`, int32 words in device scratch (poa_win.cu), and `Tables`, the
+// code-chase kernels' compact one (node ids, positions and rows int16,
+// bases and counts int8: 29 B a node at 4 predecessor slots, 45 B at 8),
+// small enough for one block's shared memory at the smaller tiers.  A
+// code-chase kernel carves `Tables` from its dynamic shared memory when
+// its launch geometry says they fit (`Geometry::tables`), else from the
+// block's device scratch; the kernels are templates on that choice, so the
+// same routines compile to shared-memory or device-memory accesses.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,6 +29,7 @@
 namespace {
 
 constexpr int RING_CAP = 8;
+constexpr int VW_MAX = 32766;         // VW + 1 rows must fit int16
 
 // Provenance code word with SB-bit predecessor slot fields: SB = 7 is the
 // int32 word of smoothxg_tpu/ops/poa_pallas_fused.py:403-409, SB = 2 the
@@ -34,27 +46,32 @@ struct CodeLayout {
                          HQZ = 3 * SB + 9;
 };
 
-// Per-block scratch tables, int32 words (v1 = VW + 1):
+// A block's graph tables: node ids, positions and rows of type Id, bases
+// and counts of type Byte.  Rows are indexed by topological position (row
+// 0 = the virtual source), so a fill writes its rows in order and a
+// predecessor row is pos[pred] + 1.  nsucc is only ever tested against 0.
+template <typename Id, typename Byte>
+struct GraphT {
+    Id *pos, *ring, *nxt, *preds, *rnode, *rpreds;
+    Id *rlo, *rhi, *rmr, *rMr, *target, *spl;
+    Byte *base, *npred, *nsucc, *rnp, *rbase;
+    int pcap;
+};
+using Graph = GraphT<int32_t, int32_t>;
+using Tables = GraphT<int16_t, int8_t>;
+
+// poa_win.cu's tables, int32 words (v1 = VW + 1):
 //   node tables  base pos ring nxt npred nsucc      6 * v1
 //                preds                              pcap * v1
 //   row tables   node np lo hi mr Mr                6 * v1
 //                pred rows                          pcap * v1
 //   target (LW), ring splices (2 * LW)              3 * LW
-// followed by the kernel's DP planes.  Rows are indexed by topological
-// position (row 0 = the virtual source), so a fill writes its rows in
-// order and a predecessor row is pos[pred] + 1.
-struct Graph {
-    int32_t *base, *pos, *ring, *nxt, *npred, *nsucc, *preds;
-    int32_t *rnode, *rnp, *rlo, *rhi, *rmr, *rMr, *rpreds;
-    int32_t *target, *spl;
-    int pcap;
-};
-
+// followed by the kernel's DP planes (no row bases: rbase stays null).
 __host__ __device__ inline size_t graph_words(size_t v1, int pcap, int LW) {
     return (12 + 2 * (size_t)pcap) * v1 + 3 * (size_t)LW;
 }
 
-// carve the tables out of `sc`; returns the first word past them
+// carve them out of `sc`; returns the first word past them
 __device__ inline int32_t* graph_carve(Graph& k, int32_t* sc, size_t v1,
                                        int pcap, int LW) {
     k.pcap = pcap;
@@ -65,20 +82,62 @@ __device__ inline int32_t* graph_carve(Graph& k, int32_t* sc, size_t v1,
     k.rnode = rt;         k.rnp = rt + v1;       k.rlo = rt + 2 * v1;
     k.rhi = rt + 3 * v1;  k.rmr = rt + 4 * v1;   k.rMr = rt + 5 * v1;
     k.rpreds = rt + 6 * v1;
+    k.rbase = nullptr;
     k.target = sc + (12 + 2 * pcap) * v1;
     k.spl = k.target + LW;
     return sc + graph_words(v1, pcap, LW);
 }
 
+// The code-chase kernels' compact tables (LS = the launch's row stride):
+//   int16  pos ring nxt                 3 * v1   (node: position, ring, list)
+//          preds                        pcap * v1
+//          rnode                        v1       (row: its node)
+//          rpreds                       pcap * v1 (row: predecessor rows)
+//          rlo rhi rmr rMr              4 * v1   (banded launches only)
+//          target, ring splices         3 * LS
+//   int8   base npred nsucc rnp rbase   5 * v1   (rbase: the row's base)
+// padded to 16 bytes.
+__host__ __device__ inline size_t table_bytes(size_t v1, int pcap, int LS,
+                                              int banded) {
+    const size_t w16 = (4 + 2 * (size_t)pcap + (banded ? 4 : 0)) * v1
+                     + 3 * (size_t)LS;
+    return (2 * w16 + 5 * v1 + 15) & ~(size_t)15;
+}
+
+// carve them out of `t` (16-byte aligned)
+__device__ __forceinline__ void graph_carve(Tables& k, int8_t* t, size_t v1,
+                                            int pcap, int LS, int banded) {
+    int16_t* w = (int16_t*)t;
+    k.pcap = pcap;
+    k.pos = w;            k.ring = w + v1;       k.nxt = w + 2 * v1;
+    k.preds = w + 3 * v1;
+    k.rnode = k.preds + pcap * v1;
+    k.rpreds = k.rnode + v1;
+    int16_t* x = k.rpreds + pcap * v1;
+    k.rlo = k.rhi = k.rmr = k.rMr = nullptr;
+    if (banded) {
+        k.rlo = x;  k.rhi = x + v1;  k.rmr = x + 2 * v1;  k.rMr = x + 3 * v1;
+        x += 4 * v1;
+    }
+    k.target = x;
+    k.spl = x + LS;
+    int8_t* b = (int8_t*)(x + 3 * (size_t)LS);
+    k.base = b;           k.npred = b + v1;      k.nsucc = b + 2 * v1;
+    k.rnp = b + 3 * v1;   k.rbase = b + 4 * v1;
+}
+
 // predecessor row of slot s of row i (a node without predecessors reads
 // row 0, the virtual source)
-__device__ __forceinline__ int pred_row(const Graph& k, int i, int s) {
+template <class K>
+__device__ __forceinline__ int pred_row(const K& k, int i, int s) {
     return k.rnp[i] > 0 ? k.rpreds[(size_t)i * k.pcap + s] : 0;
 }
 
 // seed: sequence 0 becomes a chain of L0 nodes
-__device__ void seed_par(Graph& k, const int8_t* seq0, int L0,
-                         int32_t* path0, int first, int stride) {
+template <class K>
+__device__ __forceinline__ void seed_par(K& k, const int8_t* seq0, int L0,
+                                         int32_t* path0, int first,
+                                         int stride) {
     for (int v = first; v < L0; v += stride) {
         k.base[v] = seq0[v];
         k.pos[v] = v;
@@ -92,7 +151,8 @@ __device__ void seed_par(Graph& k, const int8_t* seq0, int L0,
 }
 
 // rows in list order (the list is kept topological); returns V
-__device__ int topo_walk(Graph& k, int head) {
+template <class K>
+__device__ __forceinline__ int topo_walk(K& k, int head) {
     int i = 0;
     for (int v = head; v >= 0; v = k.nxt[v]) {
         k.pos[v] = i;
@@ -101,12 +161,16 @@ __device__ int topo_walk(Graph& k, int head) {
     return i;
 }
 
-// node count and predecessor rows of every row
-__device__ void row_preds_par(Graph& k, int V, int first, int stride) {
+// node count, base (where the layout keeps it) and predecessor rows of
+// every row
+template <class K>
+__device__ __forceinline__ void row_preds_par(K& k, int V, int first,
+                                              int stride) {
     for (int i = 1 + first; i <= V; i += stride) {
         const int v = k.rnode[i];
         const int np = k.npred[v];
         k.rnp[i] = np;
+        if (k.rbase) k.rbase[i] = k.base[v];
         for (int p = 0; p < np; ++p)
             k.rpreds[(size_t)i * k.pcap + p] =
                 k.pos[k.preds[(size_t)v * k.pcap + p]] + 1;
@@ -115,7 +179,8 @@ __device__ void row_preds_par(Graph& k, int V, int first, int stride) {
 
 // min/max topological rank per row (the abPOA band anchor); returns the
 // longest rank D
-__device__ int band_ranks(Graph& k, int V) {
+template <class K>
+__device__ __forceinline__ int band_ranks(K& k, int V) {
     int D = 0;
     for (int i = 1; i <= V; ++i) {
         const int np = k.rnp[i];
@@ -124,8 +189,8 @@ __device__ int band_ranks(Graph& k, int V) {
             int lo = 1 << 28, hi = 0;
             for (int p = 0; p < np; ++p) {
                 const int u = k.rpreds[(size_t)i * k.pcap + p];
-                lo = min(lo, k.rmr[u]);
-                hi = max(hi, k.rMr[u]);
+                lo = min(lo, (int)k.rmr[u]);
+                hi = max(hi, (int)k.rMr[u]);
             }
             mr = lo + 1;
             Mr = hi + 1;
@@ -137,25 +202,49 @@ __device__ int band_ranks(Graph& k, int V) {
     return D;
 }
 
-// the band [lo, hi] of every row: [0, L] unbanded, else the adaptive band
-// around the row's rank (rows stay full width, so no band overflows)
-__device__ void band_rows_par(Graph& k, int V, int L, int banded, int w,
-                              int D, int first, int stride) {
+// the band [lo, hi] of every row of a banded launch: the adaptive band
+// around the row's rank (rows stay full width, so no band overflows); an
+// unbanded fill takes [0, L] without reading a table
+__device__ __forceinline__ void band_rows_par(Tables& k, int V, int L, int w,
+                                              int D, int first, int stride) {
     const int adj_l = max(0, D - L), adj_r = max(0, L - D);
     for (int i = 1 + first; i <= V; i += stride) {
-        k.rlo[i] = banded ? max(0, k.rmr[i] - w - adj_l) : 0;
-        k.rhi[i] = banded ? min(L, k.rMr[i] + w + adj_r) : L;
+        k.rlo[i] = max(0, k.rmr[i] - w - adj_l);
+        k.rhi[i] = min(L, k.rMr[i] + w + adj_r);
     }
 }
 
+// Where column j of a DP row sits in the row: in column order (poa_code)
+// or in poa_stacked's lane-major order (SpanMap).
+struct Natural {
+    __device__ __forceinline__ int operator()(int j) const { return j; }
+};
+
+// poa_stacked's lane-major row order for a round of spans of S columns (a
+// multiple of 4): lane l owns columns [l S, (l + 1) S), and column l S + x
+// sits at (x / 4) 128 + 4 l + x % 4, so a warp's accesses to 4 columns of
+// every span (an int4 of int32, or 4 uint16) are one contiguous block.
+// j / S is a multiply by ceil(2^32 / S), exact while j S < 2^32.
+struct SpanMap {
+    unsigned S, magic;
+    __device__ __forceinline__ explicit SpanMap(int s)
+        : S((unsigned)s), magic(0xFFFFFFFFu / (unsigned)s + 1) {}
+    __device__ __forceinline__ int operator()(int j) const {
+        const unsigned l = __umulhi((unsigned)j, magic), x = j - l * S;
+        return (int)((x >> 2) * 128 + l * 4 + (x & 3));
+    }
+};
+
 // Chase the code words from the end cell (i, j): one code read per step
-// (CODE32 in int32 words, CODE16 in uint16).  The tie order of the codes
-// is the oracle's (ops/poa_code.py).  Writes match targets (node id, -1 =
-// insertion, -2 = untouched); returns 1 when the chase leaves the table
-// (cannot happen with a correct fill).
-template <int SB, typename CodeT>
-__device__ int code_chase(Graph& k, const CodeT* cc, int LW, int i, int j,
-                          int local) {
+// (CODE32 in int32 words, CODE16 in uint16; rows of RS entries, column j
+// at map(j)).  The tie order of the codes is the oracle's
+// (ops/poa_code.py).  Writes match targets (node id, -1 = insertion, -2 =
+// untouched); returns 1 when the chase leaves the table (cannot happen with
+// a correct fill).
+template <int SB, typename CodeT, typename Map = Natural>
+__device__ __forceinline__ int code_chase(Tables& k, const CodeT* cc, int RS,
+                                          int i, int j, int local,
+                                          Map map = Map()) {
     using CL = CodeLayout<SB>;
     int chan = 0;                       // 0 H, 1 Hq, 2 E1, 3 E2
     while (true) {
@@ -167,21 +256,30 @@ __device__ int code_chase(Graph& k, const CodeT* cc, int LW, int i, int j,
             chan = 0;
             continue;
         }
-        const int cw = (int)cc[(size_t)i * LW + j];
+        const CodeT* row = cc + (size_t)i * RS;
+        const int cw = (int)row[map(j)];
         if (chan <= 1) {
             if (chan == 0 && !((cw >> CL::HQEQ) & 1)) {
-                // F: nearest origin k < j that renewed the prefix maximum
-                // of a channel that gives H here (channel 1 or 2)
+                // F: nearest origin kk < j that renewed the prefix maximum
+                // of a channel that gives H here (channel 1 or 2); eight
+                // code words are read at a time, so their loads overlap
                 const int f1 = (cw >> CL::F1H) & 1, f2 = (cw >> CL::F2H) & 1;
-                int kk = j - 1;
-                for (; kk >= 0; --kk) {
-                    const int ck = (int)cc[(size_t)i * LW + kk];
-                    if (((f1 & (ck >> CL::F1N)) | (f2 & (ck >> CL::F2N))) & 1)
-                        break;
+                int kk = j - 1, hit = -1;
+                for (; kk >= 0 && hit < 0; kk -= 8) {
+                    int ck[8];
+#pragma unroll
+                    for (int t = 0; t < 8; ++t)
+                        ck[t] = kk - t >= 0 ? (int)row[map(kk - t)] : 0;
+#pragma unroll
+                    for (int t = 7; t >= 0; --t)
+                        if (kk - t >= 0 &&
+                            (((f1 & (ck[t] >> CL::F1N))
+                              | (f2 & (ck[t] >> CL::F2N))) & 1))
+                            hit = kk - t;
                 }
-                if (kk < 0) return 1;   // no F origin: cannot happen
-                for (int t = kk; t < j; ++t) k.target[t] = -1;
-                j = kk;
+                if (hit < 0) return 1;  // no F origin: cannot happen
+                for (int t = hit; t < j; ++t) k.target[t] = -1;
+                j = hit;
                 chan = 1;
                 continue;
             }
@@ -212,9 +310,10 @@ __device__ int code_chase(Graph& k, const CodeT* cc, int LW, int i, int j,
 // STAGE is poa_code.cu's profiling knob: 3 looks at the target alone (no
 // ring scan past it), 4 creates no node and books no edge (an unmatched
 // position takes node 0); every other stage threads in full.
-template <int STAGE = 0>
-__device__ int thread_seq(Graph& k, const int8_t* seq, int L, int VW,
-                          int& Vc, int& head, int& gs, int32_t* path) {
+template <int STAGE = 0, class K>
+__device__ __forceinline__ int thread_seq(K& k, const int8_t* seq,
+                                          int L, int VW, int& Vc, int& head,
+                                          int& gs, int32_t* path) {
     int prev = -1, guard = -1, nspl = 0;
     for (int j = 0; j < L; ++j) {
         const int bch = seq[j];
@@ -258,7 +357,7 @@ __device__ int thread_seq(Graph& k, const int8_t* seq, int L, int VW,
                 if (np >= k.pcap) return 1;
                 k.preds[(size_t)v * k.pcap + np] = prev;
                 k.npred[v] = np + 1;
-                k.nsucc[prev] += 1;
+                k.nsucc[prev] = 1;
             }
         }
         path[j] = v;
@@ -274,8 +373,11 @@ __device__ int thread_seq(Graph& k, const int8_t* seq, int L, int VW,
 
 // base and ring of every node, -1 past Vc (the order row is written by
 // export_order)
-__device__ void export_nodes_par(const Graph& k, int32_t* bexp, int VW,
-                                 int Vc, int first, int stride) {
+template <class K>
+__device__ __forceinline__ void export_nodes_par(const K& k,
+                                                 int32_t* bexp, int VW,
+                                                 int Vc, int first,
+                                                 int stride) {
     for (int v = first; v < VW; v += stride) {
         bexp[v] = v < Vc ? k.base[v] : -1;
         bexp[VW + v] = v < Vc ? k.ring[v] : -1;
@@ -283,18 +385,52 @@ __device__ void export_nodes_par(const Graph& k, int32_t* bexp, int VW,
     }
 }
 
-__device__ void export_order(const Graph& k, int32_t* bexp, int VW, int Vc,
-                             int head) {
+template <class K>
+__device__ __forceinline__ void export_order(const K& k, int32_t* bexp,
+                                             int VW, int Vc, int head) {
     int i = 0;
     for (int v = head; v >= 0 && i < Vc; v = k.nxt[v]) bexp[2 * VW + i++] = v;
 }
 
 // an overflowed block's canonical outputs
-__device__ void export_overflow_par(int32_t* bpaths, size_t npaths,
-                                    int32_t* bexp, int VW, int first,
-                                    int stride) {
+__device__ __forceinline__ void export_overflow_par(int32_t* bpaths,
+                                                    size_t npaths,
+                                                    int32_t* bexp, int VW,
+                                                    int first, int stride) {
     for (size_t x = first; x < npaths; x += stride) bpaths[x] = -1;
     for (size_t x = first; x < 3 * (size_t)VW; x += stride) bexp[x] = -1;
+}
+
+// ---- launch geometry, from the device (host side) ----
+
+// How a launch lays out: `per_block` POA blocks in each of `grid` thread
+// blocks, `smem` bytes of dynamic shared memory per thread block, graph
+// tables in shared memory (`tables` = 1) or in device scratch (0).
+struct Geometry {
+    int per_block, grid, smem, tables;
+};
+
+// the current device's SM count, the shared memory one block may opt in to
+// and the shared memory of one SM
+inline cudaError_t device_limits(int& sms, int& smem_block, int& smem_sm) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &smem_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    return err;
+}
+
+// the geometry out of a C entry's int[4]
+inline void geometry_out(const Geometry& g, int* out) {
+    out[0] = g.per_block; out[1] = g.grid; out[2] = g.smem;
+    out[3] = g.tables;
 }
 
 }  // namespace

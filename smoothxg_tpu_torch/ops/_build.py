@@ -157,10 +157,14 @@ def load() -> ctypes.CDLL:
             lib.poa_win_launch.restype = ci
             lib.poa_round_launch.argtypes = [vp] * 10 + [ci] * 5 + [vp]
             lib.poa_round_launch.restype = ci
-            # (..., pcap, stage, local, banded, stream)
-            for name in ("poa_code_launch", "poa_stacked_launch"):
-                getattr(lib, name).argtypes = [vp] * 8 + [ci] * 8 + [vp]
-                getattr(lib, name).restype = ci
+            # (..., pcap, stage, LS, local, banded, stream) and the
+            # geometry (B, VW, pcap, LS, banded, int[4])
+            for name in ("poa_code", "poa_stacked"):
+                getattr(lib, f"{name}_launch").argtypes = \
+                    [vp] * 8 + [ci] * 9 + [vp]
+                getattr(lib, f"{name}_launch").restype = ci
+                getattr(lib, f"{name}_geometry").argtypes = [ci] * 5 + [vp]
+                getattr(lib, f"{name}_geometry").restype = ci
             # the probes (csrc/probes.cu, smoothxg_tpu_torch/tools/_probe.py)
             lib.probe_scalar_launch.argtypes = [ci] * 4 + [vp] * 3
             lib.probe_row_launch.argtypes = [ci] * 4 + [vp] * 4

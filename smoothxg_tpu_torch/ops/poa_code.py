@@ -19,6 +19,10 @@ values:
     predecessor slot that holds the maximum, an E step opens before it
     extends, F origins nearest first with channel 1 before channel 2;
   * 8 predecessor slots per node (`PCAP`); a 9th overflows.
+The kernel's DP planes are (VW + 1) x LS per block, LS = `row_stride` of
+the launch (its longest sequence + 1, rounded up to 32), so scratch
+follows the batch and not the caps; its graph tables keep node ids and
+rows in int16, so VW is at most `VW_MAX`.
 For CUDA tensors `poa_code` launches csrc/poa_code.cu; for CPU tensors it
 runs `poa_code_reference`, the plain PyTorch version, which is written
 against the kernel's arithmetic.  Scores are int32 with the oracle's floor
@@ -39,10 +43,21 @@ import numpy as np
 import torch
 
 from .poa_win import (NEG, _check_inputs, _Overflow, _RefBlock, launch,
-                      to_win_layout)
+                      row_stride, to_win_layout)
 
 PCAP = 8
 FOLD = 8
+VW_MAX = 32766     # node ids and rows are int16 in the kernels' tables
+
+
+def table_bytes(VW: int, pcap: int, LS: int, banded: bool) -> int:
+    """Bytes of one block's graph tables at row stride LS: int16 node,
+    row and target tables, int8 bases and counts, padded to 16
+    (csrc/poa_graph.cuh:table_bytes)."""
+    v1 = VW + 1
+    w16 = (4 + 2 * pcap + (4 if banded else 0)) * v1 + 3 * LS
+    return (2 * w16 + 5 * v1 + 15) & ~15
+
 
 
 @dataclass(frozen=True)
@@ -58,12 +73,12 @@ class CodeCaps:
     def W(self) -> int:
         return self.LW
 
-    def scratch_words(self) -> int:
-        """int32 words of per-block scratch: node and row tables,
-        target/splice lists and the four DP planes H, E1, E2, CODE (the
-        layout is spelled out in csrc/poa_code.cu)."""
-        v1 = self.VW + 1
-        return (12 + 2 * self.pcap) * v1 + 3 * self.LW + 4 * v1 * self.LW
+    def scratch_words(self, LS: int) -> int:
+        """int32 words of per-block scratch at row stride LS (ops/poa_win.
+        row_stride): the graph tables, then the four DP planes H, E1, E2,
+        CODE at 16 B a cell (csrc/poa_code.cu:block_bytes)."""
+        return (table_bytes(self.VW, self.pcap, LS, self.banded)
+                + 16 * (self.VW + 1) * LS) // 4
 
 
 class CodeLayout:
@@ -99,6 +114,12 @@ def check_stage(stage: int, stages) -> None:
         raise ValueError(f"stage {stage} is not one of {list(stages)}")
 
 
+def check_nodes(caps) -> None:
+    if caps.VW > VW_MAX:
+        raise ValueError(f"the code-chase kernels hold node ids in int16: "
+                         f"VW {caps.VW} > {VW_MAX}")
+
+
 def poa_code(seqs: torch.Tensor, slen: torch.Tensor, nseq: torch.Tensor,
              params: torch.Tensor, caps: CodeCaps, stage: int = 0):
     """Run the whole POA loop of every block (or a profiling `stage` of
@@ -107,10 +128,12 @@ def poa_code(seqs: torch.Tensor, slen: torch.Tensor, nseq: torch.Tensor,
     inputs' device."""
     _check_inputs(seqs, slen, nseq, params, caps)
     check_stage(stage, STAGES)
+    check_nodes(caps)
     if seqs.device.type == "cpu":
         return poa_code_reference(seqs, slen, nseq, params, caps, stage)
+    LS = row_stride(slen, caps.LW)
     out = launch("poa_code", seqs, slen, nseq, params, caps,
-                 caps.scratch_words(), caps.pcap, stage)
+                 caps.scratch_words(LS), caps.pcap, stage, LS)
     poa_code.launches += 1
     return out
 

@@ -14,9 +14,12 @@ Tiers are (VW, LW, W): node capacity, sequence capacity, stored DP window.
 On the H100 the DP planes live in device memory at 16 bytes per cell
 (H, Hq, E1, E2 as int32), so a tier costs ~16 * VW * W bytes of scratch per
 block and the batch per launch is what SCRATCH_BUDGET holds (capped at
-MAX_BATCH, two blocks per SM of a 132-SM card).  They cover what the TPU
+MAX_BATCH, the blocks a 132-SM card holds at once).  The code-chase
+kernels' planes are VW x LS instead, LS the launch's row stride
+(ops/poa_win.row_stride), so their batch is sized from the longest
+sequence of the blocks routed to the tier.  The tiers cover what the TPU
 tiers took — full width to LW 4096, banded long blocks to LW 10240, VW to
-8704 — without K-stacking:
+8704 — without K-stacking (sizes per block for poa_win):
   (4352, 2048, 2048)   the bulk of -l 700..1100 blocks, 143 MB/block
   (8704, 2048, 2048)   high-growth blocks of the same lengths, 285 MB
   (6144, 3072, 3072)   mid-length full-width blocks, 302 MB
@@ -47,7 +50,7 @@ from .poa_fused import FusedHostEngine
 from .poa_host import POAParams
 from .poa_rehydrate import GROWTH_CAL, estimate_final_v, rehydrate_device_raw
 from .poa_stacked import poa_stacked, scratch_words, stacked_caps
-from .poa_win import WinCaps, pack_blocks, poa_win
+from .poa_win import WinCaps, pack_blocks, poa_win, stride_for
 
 __all__ = ["POAParams", "TorchPOAEngine", "rehydrate_device_raw"]
 
@@ -59,7 +62,11 @@ class TorchPOAEngine:
              (8704, 4096, 4096), (8704, 10240, 3072))
     GROWTH_CAL = GROWTH_CAL
     SCRATCH_BUDGET = 24 << 30     # bytes of DP scratch per launch
-    MAX_BATCH = 264
+    # the most POA blocks one launch puts on a 132-SM H100 at once, by
+    # kernel: poa_win and poa_code run two 256-thread blocks an SM
+    # (poa_code at <= 128 registers), poa_stacked up to 8 one-warp POA
+    # blocks in a thread block (K = ceil(B / SMs), csrc/poa_stacked.cu)
+    MAX_BATCH = {"win": 264, "code": 264, "stacked": 1056}
 
     def __init__(self, device: str | torch.device = "cuda",
                  max_seqs: int = 48, tiers: tuple | None = None,
@@ -140,20 +147,26 @@ class TorchPOAEngine:
 
     def _kernel(self, VW: int, LW: int, W: int, local: bool, banded: bool):
         """The selected kernel's wrapper, its caps for a tier and variant,
-        and its int32 scratch words per block."""
+        and its int32 scratch words per block as a function of the
+        launch's row stride (which poa_win's do not depend on)."""
         if self.kernel == "code":
             caps = CodeCaps(VW, LW, local, banded)
-            return poa_code, caps, caps.scratch_words()
+            return poa_code, caps, caps.scratch_words
         if self.kernel == "stacked":
             caps = stacked_caps(VW, LW, local, banded)
-            return poa_stacked, caps, scratch_words(caps)
+            return poa_stacked, caps, lambda LS: scratch_words(caps, LS)
         caps = WinCaps(VW, LW, W, local, banded)
-        return poa_win, caps, caps.scratch_words()
+        return poa_win, caps, lambda LS: caps.scratch_words()
 
-    def _tier_batch(self, ti: int) -> int:
+    def _tier_batch(self, ti: int, banded: bool, maxlen: int) -> int:
+        """Blocks per launch of tier `ti` for blocks of at most `maxlen`
+        bases: what SCRATCH_BUDGET holds at that row stride, capped at
+        MAX_BATCH."""
         VW, LW, W = self.tiers[ti]
-        words = self._kernel(VW, LW, W, True, W < LW)[2]
-        return max(1, min(self.MAX_BATCH, self.SCRATCH_BUDGET // (4 * words)))
+        words = self._kernel(VW, LW, W, True, banded)[2](
+            stride_for(maxlen, LW))
+        return max(1, min(self.MAX_BATCH[self.kernel],
+                          self.SCRATCH_BUDGET // (4 * words)))
 
     def _route(self, seqs, params=None) -> int | None:
         """Smallest tier index this block fits, or None (native engine).
@@ -228,7 +241,8 @@ class TorchPOAEngine:
         for (local, banded, ti), idxs in dev.items():
             idxs.sort(key=lambda i: (len(blocks[i][0]),
                                      len(blocks[i][0][0])), reverse=True)
-            cap = self._tier_batch(ti)
+            cap = self._tier_batch(ti, banded, max(
+                len(s) for i in idxs for s in blocks[i][0]))
             for s in range(0, len(idxs), cap):
                 handles.append(self._launch(blocks, idxs[s:s + cap], ti,
                                             local, banded))

@@ -10,7 +10,9 @@ grid step and records a 16-bit code per cell with 2-bit slot fields
 (`CODE16`, poa_pallas_stacked.py:433-442); a 5th distinct predecessor of
 a node overflows, as there.  On the GPU, csrc/poa_stacked.cu runs one warp
 per POA block and several warps per thread block, with no lockstep: each
-warp fills its own rows with warp shuffles only.  For CPU tensors
+warp fills its own rows, one warp scan a row, each lane a span of the row
+stored lane-major, at the launch's row stride (`row_stride`, as poa_code,
+rounded up to 128).  For CPU tensors
 `poa_stacked` runs `poa_stacked_reference`, the code-chase plain version
 of ops/poa_code with the 16-bit code layout.  A windowed caps (W < LW) or
 more than 4 predecessor slots raises ValueError: the kernel is full width
@@ -24,9 +26,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .poa_code import (CodeCaps, CodeLayout, check_stage, code_reference,
-                       from_fused_layout, to_fused_layout)
-from .poa_win import _check_inputs, launch
+from .poa_code import (CodeCaps, CodeLayout, check_nodes, check_stage,
+                       code_reference, from_fused_layout, table_bytes,
+                       to_fused_layout)
+from .poa_win import _check_inputs, launch, row_stride
 
 PCAP = 4
 CODE16 = CodeLayout(2)
@@ -39,15 +42,13 @@ def stacked_caps(VW: int, LW: int, local: bool, banded: bool) -> CodeCaps:
     return CodeCaps(VW, LW, local, banded, pcap=PCAP)
 
 
-def scratch_words(caps) -> int:
-    """int32 words of per-block scratch: node and row tables,
-    target/splice lists, the int32 planes H, E1, E2 and the 16-bit code
-    plane (14 B per cell; the layout is spelled out in
-    csrc/poa_stacked.cu)."""
-    v1 = caps.VW + 1
-    cells = v1 * caps.LW
-    return (12 + 2 * caps.pcap) * v1 + 3 * caps.LW + 3 * cells + \
-        (cells + 1) // 2
+def scratch_words(caps, LS: int) -> int:
+    """int32 words of per-block scratch at row stride LS (ops/poa_win.
+    row_stride): the graph tables, the int32 planes H, E1, E2 and the
+    16-bit code plane, 14 B a cell, their rows LS rounded up to 128 (the
+    kernel's lane-major rows; csrc/poa_stacked.cu:block_bytes)."""
+    return (table_bytes(caps.VW, caps.pcap, LS, caps.banded)
+            + 14 * (caps.VW + 1) * (-(-LS // 128) * 128)) // 4
 
 
 def _check_caps(caps) -> None:
@@ -68,10 +69,12 @@ def poa_stacked(seqs: torch.Tensor, slen: torch.Tensor, nseq: torch.Tensor,
     _check_caps(caps)
     _check_inputs(seqs, slen, nseq, params, caps)
     check_stage(stage, STAGES)
+    check_nodes(caps)
     if seqs.device.type == "cpu":
         return poa_stacked_reference(seqs, slen, nseq, params, caps, stage)
+    LS = row_stride(slen, caps.LW)
     out = launch("poa_stacked", seqs, slen, nseq, params, caps,
-                 scratch_words(caps), caps.pcap, stage)
+                 scratch_words(caps, LS), caps.pcap, stage, LS)
     poa_stacked.launches += 1
     return out
 

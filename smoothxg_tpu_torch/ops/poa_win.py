@@ -137,11 +137,43 @@ def poa_win(seqs: torch.Tensor, slen: torch.Tensor, nseq: torch.Tensor,
 poa_win.launches = 0     # kernel launches made by this wrapper
 
 
+def stride_for(maxl: int, LW: int) -> int:
+    """Row stride of the code-chase kernels' DP planes for a launch whose
+    longest sequence is `maxl`: maxl (capped at LW - 1, the longest that
+    fits) + 1, rounded up to 32 columns."""
+    return -(-(min(max(maxl, 0), LW - 1) + 1) // 32) * 32
+
+
+def row_stride(slen: torch.Tensor, LW: int) -> int:
+    """`stride_for` the longest length in any slot of `slen` (read on the
+    host)."""
+    return stride_for(int(slen.max()) if slen.numel() else 0, LW)
+
+
+def geometry(name: str, B: int, caps, LS: int) -> dict:
+    """The launch geometry lib.<name>_geometry gives a code-chase kernel's
+    launch of B blocks at `caps` and row stride LS on the current CUDA
+    device: POA blocks per thread block, grid, dynamic shared bytes, and
+    where the graph tables sit ("shared" or "device")."""
+    import ctypes
+    from . import _build
+    lib = _build.load()
+    out = (ctypes.c_int * 4)()
+    rc = getattr(lib, f"{name}_geometry")(B, caps.VW, caps.pcap, LS,
+                                          int(caps.banded), out)
+    if rc != 0:
+        raise RuntimeError(f"{name} geometry: CUDA error {rc} "
+                           f"({lib.poa_win_error_string(rc).decode()})")
+    return {"per_block": out[0], "grid": out[1], "smem": out[2],
+            "tables": "shared" if out[3] else "device", "LS": LS}
+
+
 def launch(name: str, seqs, slen, nseq, params, caps, words: int, *extra):
     """Allocate the outputs and `words` int32 of scratch per block, launch
     lib.<name>_launch(inputs, outputs, scratch, B, RW, LW, VW, *extra,
     local, banded, stream) on the current stream and raise on a launch
-    error (the whole-block kernels' shared C interface)."""
+    error (the whole-block kernels' shared C interface; the code-chase
+    kernels' extras end with their row stride, `row_stride`)."""
     dev = seqs.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")

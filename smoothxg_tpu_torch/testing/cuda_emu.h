@@ -25,29 +25,70 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 
 struct dim3 {
     unsigned x = 1, y = 1, z = 1;
 };
+struct alignas(16) int4 {
+    int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+struct alignas(8) uint2 {
+    unsigned x, y;
+};
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+constexpr int cudaDevAttrMultiProcessorCount = 16;
+constexpr int cudaDevAttrMaxSharedMemoryPerBlockOptin = 97;
+constexpr int cudaDevAttrMaxSharedMemoryPerMultiprocessor = 81;
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
 
+namespace emu {
+// the emulated device: SM count and shared memory limits (an H100's by
+// default; the test driver sets them), the dynamic shared memory the last
+// cudaFuncSetAttribute opted in to, and the pending launch error
+inline int sms = 132, smem_block = 232448, smem_sm = 233472;
+inline int opt_in = 48 * 1024;
+inline int error = cudaSuccess;
+}  // namespace emu
+
 template <typename F>
-inline int cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
-inline int cudaGetLastError() { return cudaSuccess; }
+inline int cudaFuncSetAttribute(F, int attr, int value) {
+    if (attr == cudaFuncAttributeMaxDynamicSharedMemorySize) {
+        if (value > emu::smem_block) return cudaErrorInvalidValue;
+        emu::opt_in = value;
+    }
+    return cudaSuccess;
+}
+inline int cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+inline int cudaDeviceGetAttribute(int* v, int attr, int) {
+    *v = attr == cudaDevAttrMultiProcessorCount ? emu::sms
+       : attr == cudaDevAttrMaxSharedMemoryPerBlockOptin ? emu::smem_block
+       : attr == cudaDevAttrMaxSharedMemoryPerMultiprocessor ? emu::smem_sm
+       : 0;
+    return *v ? cudaSuccess : cudaErrorInvalidValue;
+}
+inline int cudaGetLastError() {
+    const int e = emu::error;
+    emu::error = cudaSuccess;
+    return e;
+}
 inline const char* cudaGetErrorString(int) { return "no error"; }
 
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+    return (unsigned)(((unsigned long long)a * b) >> 32);
+}
 // cache-operator loads and stores: plain accesses on the host
 template <typename T>
 inline T __ldcg(const T* p) { return *p; }
@@ -78,11 +119,19 @@ inline T exchange(T v, int src) {
     return r;
 }
 
-// run `kernel(args...)` over `grid` thread blocks of `block` threads
+// run `kernel(args...)` over `grid` thread blocks of `block` threads; a
+// launch the card would refuse (too much dynamic shared memory, or more
+// than 48 KB without opting in) does not run and leaves an error for
+// cudaGetLastError.  Shared memory starts as garbage, as on the card.
 template <typename K, typename... A>
 void launch(unsigned grid, unsigned block, size_t smem, cudaStream_t,
             K kernel, A... args) {
-    dyn_smem.assign(smem + 16, 0);
+    if (smem > (size_t)smem_block ||
+        (smem > 48 * 1024 && smem > (size_t)opt_in) || block > 1024) {
+        error = cudaErrorInvalidValue;
+        return;
+    }
+    dyn_smem.assign(smem + 16, 0x5a);
     for (unsigned b = 0; b < grid; ++b) {
         block_bar = std::make_unique<std::barrier<>>(block);
         warps.clear();

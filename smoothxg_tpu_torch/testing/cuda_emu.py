@@ -9,10 +9,14 @@ testing/cuda_emu.h (dynamic shared memory becomes a host buffer, a
 `run(exe, ...)` launches a whole-block kernel's C entry point
 `<name>_launch` on the port's (seqs, slen, nseq, params) CPU tensors at a
 profiling `stage` and returns (meta, exp, paths), which must equal the
-plain PyTorch version's; `run_probe(exe, family, ...)` launches
-`probe_<family>_launch` of probes.cu and returns its 128 outputs.  A race
-between threads shows as a hang, so callers run it under a timeout.  `sms`
-stands in for the card's SM count where a launch sizes its grid from it.
+plain PyTorch version's; `run_geometry` also returns the launch geometry a
+code-chase kernel chose (`<name>_geometry`: POA blocks per thread block,
+grid, dynamic shared bytes, tables in shared or device memory).
+`run_probe(exe, family, ...)` launches `probe_<family>_launch` of probes.cu
+and returns its 128 outputs.  A race between threads shows as a hang, so
+callers run it under a timeout.  The emulated device has an H100's SM
+count and shared memory limits unless `sms`, `smem_block` and `smem_sm`
+say otherwise; a launch the card would refuse for its shared memory fails.
 """
 from __future__ import annotations
 
@@ -31,11 +35,12 @@ _MAIN = r"""
 #include <cstdlib>
 int main(int argc, char** argv) {
     FILE* f = std::fopen(argv[1], "rb");
-    int hd[10];
-    if (std::fread(hd, 4, 10, f) != 10) return 2;
+    int hd[14];
+    if (std::fread(hd, 4, 14, f) != 14) return 2;
     const int B = hd[0], RW = hd[1], LW = hd[2], VW = hd[3], pcap = hd[4],
               local = hd[5], banded = hd[6], words = hd[7], W = hd[8],
-              stage = hd[9];
+              stage = hd[9], LS = hd[10];
+    emu::sms = hd[11]; emu::smem_block = hd[12]; emu::smem_sm = hd[13];
     std::vector<int8_t> seqs((size_t)B * RW * LW);
     std::vector<int32_t> slen((size_t)B * RW), nseq(B), par((size_t)B * 8);
     if (std::fread(seqs.data(), 1, seqs.size(), f) != seqs.size() ||
@@ -49,14 +54,19 @@ int main(int argc, char** argv) {
                           meta.data(), exp_.data(), paths.data(),
                           scratch.data(), B, RW, LW, VW, EXTRA local,
                           banded, nullptr);
+    int geo[4] = {0, 0, 0, 0};
+    GEOMETRY
     f = std::fopen(argv[2], "wb");
     std::fwrite(meta.data(), 4, meta.size(), f);
     std::fwrite(exp_.data(), 4, exp_.size(), f);
     std::fwrite(paths.data(), 4, paths.size(), f);
+    std::fwrite(geo, 4, 4, f);
     std::fclose(f);
     return rc;
 }
 """
+# an H100's SMs and shared memory a block may opt in to / an SM holds
+SMS, SMEM_BLOCK, SMEM_SM = 132, 232448, 233472
 
 # the probes' entry points: header (family, a, b, c, n, sz, input words),
 # then the input; scratch starts as garbage, as on the card
@@ -95,40 +105,42 @@ int main(int argc, char** argv) {
 PROBE_FAMILIES = ("scalar", "row", "tile", "step")
 
 
-def _rewrite(src: str, sms: int | None) -> str:
+def _rewrite(src: str) -> str:
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                  r"\1* \2 = (\1*)emu::dyn_smem.data();", src)
     src = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<(.+?)>>>\(",
                  r"emu::launch(\2, \1, ", src, flags=re.S)
-    if sms is not None:
-        src = re.sub(r"constexpr int SMS = \d+;",
-                     f"constexpr int SMS = {sms};", src)
     return src
 
 
-def build(name: str, workdir: str, sms: int | None = None) -> str:
+def build(name: str, workdir: str) -> str:
     """Compile csrc/<name>.cu with the emulation; returns the executable."""
     os.makedirs(workdir, exist_ok=True)
     with open(os.path.join(workdir, "cuda_runtime.h"), "w") as f:
         f.write(f'#include "{os.path.join(_HERE, "cuda_emu.h")}"\n')
     with open(os.path.join(CSRC, f"{name}.cu")) as f:
-        src = _rewrite(f.read(), sms)
+        src = _rewrite(f.read())
     if name == "probes":
         main = _PROBE_MAIN
     else:
         # poa_win_launch takes the stored window width before pcap; the
-        # code-chase kernels take a profiling stage after it
-        extra = "W, pcap," if name == "poa_win" else "pcap, stage,"
-        main = f"\n#define LAUNCH {name}_launch\n#define EXTRA {extra}\n" \
-            + _MAIN
+        # code-chase kernels take a profiling stage and the row stride
+        # after it, and report their geometry
+        if name == "poa_win":
+            extra, geo = "W, pcap,", ""
+        else:
+            extra = "pcap, stage, LS,"
+            geo = f"if (B > 0) {name}_geometry(B, VW, pcap, LS, banded, geo);"
+        main = (f"\n#define LAUNCH {name}_launch\n#define EXTRA {extra}\n"
+                f"#define GEOMETRY {geo}\n" + _MAIN)
     cpp = os.path.join(workdir, f"{name}_emu.cpp")
     with open(cpp, "w") as f:
         f.write(src + main)
     exe = os.path.join(workdir, f"{name}_emu")
     subprocess.run([os.environ.get("CXX", "g++"), "-std=c++20", "-O1",
-                    "-pthread", "-w", "-I", workdir, "-I", CSRC, "-o", exe,
-                    cpp], check=True, capture_output=True, text=True,
-                   timeout=300)
+                    "-fno-strict-aliasing", "-pthread", "-w", "-I", workdir,
+                    "-I", CSRC, "-o", exe, cpp], check=True,
+                   capture_output=True, text=True, timeout=300)
     return exe
 
 
@@ -147,18 +159,34 @@ def _launch(exe: str, header: list, inputs, timeout: float) -> np.ndarray:
     return np.fromfile(out, np.int32)
 
 
-def run(exe: str, seqs, slen, nseq, params, caps, words: int,
-        stage: int = 0, timeout: float = 120.0):
-    """Launch the emulated kernel on CPU tensors; returns (meta, exp,
-    paths) as int32 tensors."""
+def run_geometry(exe: str, seqs, slen, nseq, params, caps, words: int,
+                 stage: int = 0, timeout: float = 120.0, LS: int = 0,
+                 sms: int = SMS, smem_block: int = SMEM_BLOCK,
+                 smem_sm: int = SMEM_SM):
+    """Launch the emulated kernel on CPU tensors with `words` int32 of
+    scratch per block (row stride LS for the code-chase kernels); returns
+    ((meta, exp, paths) as int32 tensors, the launch geometry as a dict;
+    zeros for poa_win)."""
     B, RW, LW = seqs.shape
     raw = _launch(exe, [B, RW, LW, caps.VW, caps.pcap, int(caps.local),
-                        int(caps.banded), words, caps.W, stage],
+                        int(caps.banded), words, caps.W, stage, LS, sms,
+                        smem_block, smem_sm],
                   (seqs, slen, nseq, params), timeout)
-    n1, n2 = B * 4, B * 3 * caps.VW
-    return (torch.from_numpy(raw[:n1].reshape(B, 4).copy()),
-            torch.from_numpy(raw[n1:n1 + n2].reshape(B, 3, caps.VW).copy()),
-            torch.from_numpy(raw[n1 + n2:].reshape(B, RW, LW).copy()))
+    n1, n2, n3 = B * 4, B * 3 * caps.VW, B * RW * LW
+    out = (torch.from_numpy(raw[:n1].reshape(B, 4).copy()),
+           torch.from_numpy(raw[n1:n1 + n2].reshape(B, 3, caps.VW).copy()),
+           torch.from_numpy(raw[n1 + n2:n1 + n2 + n3]
+                            .reshape(B, RW, LW).copy()))
+    g = raw[n1 + n2 + n3:].tolist()
+    return out, {"per_block": g[0], "grid": g[1], "smem": g[2],
+                 "tables": "shared" if g[3] else "device"}
+
+
+def run(exe: str, seqs, slen, nseq, params, caps, words: int,
+        stage: int = 0, timeout: float = 120.0, LS: int = 0, **device):
+    """run_geometry without the geometry."""
+    return run_geometry(exe, seqs, slen, nseq, params, caps, words, stage,
+                        timeout, LS, **device)[0]
 
 
 def run_probe(exe: str, family: str, args: tuple, n: int, sz: int = 1,

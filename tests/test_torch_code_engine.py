@@ -2,9 +2,9 @@
 TorchPOAEngine over ops/poa_code, one full-width tier) on the CPU against
 FusedPallasEngine(shape=...) in interpret mode (its unwindowed kernel
 _pallas_core) and the oracle FusedPOA, on the random and degenerate blocks
-of test_torch_engine; and a 6-way fan-in that stays on the kernel (8
-predecessor slots).  Graphs must be equal: bases, paths, topological
-order, groups."""
+of test_torch_engine; a 6-way fan-in that stays on the kernel (8
+predecessor slots); and batches sized from the launch's row stride.
+Graphs must be equal: bases, paths, topological order, groups."""
 import functools
 
 import numpy as np
@@ -15,7 +15,7 @@ from smoothxg_tpu.ops.poa_pallas_fused import FusedPallasEngine
 from smoothxg_tpu.utils.dna import encode_seq
 from smoothxg_tpu_torch.ops.poa_engine import TorchPOAEngine
 from smoothxg_tpu_torch.ops.poa_host import POAParams as PortParams
-from smoothxg_tpu_torch.testing.synth import make_fan_in_block
+from smoothxg_tpu_torch.testing.synth import make_block, make_fan_in_block
 
 from test_engine_fuzz import _params, _random_block
 from test_torch_engine import (DEGENERATE, _oracle, _same_graph,
@@ -77,3 +77,30 @@ def test_fan_in_of_six_stays_on_the_kernel():
     st = eng.stats()
     assert st["redo"] == 0 and st["device_blocks"] == 1
     assert max(len(x) for x in g.preds) == 6
+
+
+def test_batch_is_sized_from_the_row_stride():
+    """At the main path's tier a launch holds 45 full-width blocks but 164
+    of ~1.1 kb: the main path's 308 blocks in 3 iterations take 3
+    launches, not 8."""
+    eng = TorchPOAEngine(device="cpu", shape=(8704, 4096))
+    assert eng._tier_batch(0, False, 4095) == 45
+    assert eng._tier_batch(0, False, 1100) == 164
+
+
+def test_short_blocks_share_a_launch_with_the_same_graphs():
+    """A scratch budget that holds two full-width blocks holds all six
+    short ones at their row stride: one launch, oracle graphs."""
+    rng = np.random.default_rng(17)
+    p = POAParams(local=True)
+    seqs = [make_block(rng, int(rng.integers(20, 28)), 3, 0.05)
+            for _ in range(6)]
+    eng = TorchPOAEngine(device="cpu", shape=(512, 256))
+    eng.SCRATCH_BUDGET = 2 * 4 * eng._kernel(512, 256, 256, True,
+                                             False)[2](256)
+    assert eng._tier_batch(0, False, 255) == 2
+    got = eng.poa_block_batch([(sq, [1] * 3, PortParams(local=True))
+                               for sq in seqs])
+    assert eng.stats()["calls"] == 1
+    for g, sq in zip(got, seqs):
+        _same_graph(g, _oracle(sq, p))

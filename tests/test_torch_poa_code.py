@@ -3,7 +3,9 @@ against the Pallas kernel it replaces (ops/poa_pallas_fused._compiled_fused,
 interpret mode), the numpy oracle FusedPOA and poa_win's plain version at 8
 predecessor slots; and the engine's `shape` option.  (The engine against
 FusedPallasEngine(shape=...) is in test_torch_code_engine.py, the kernel
-source itself, run on the CPU, in test_torch_kernel_emu.py.)  Inputs are
+source itself, run on the CPU, in test_torch_kernel_emu.py and
+test_torch_chase_emu.py.)  Also the launch's row stride and the scratch
+and table sizes that follow from it.  Inputs are
 seeded with numpy; tolerance: none, all outputs are integers.  The Pallas
 kernel leaves exp past V and paths past each sequence unwritten, so it is
 compared inside them."""
@@ -15,12 +17,13 @@ import torch
 
 from smoothxg_tpu.ops.poa_host import POAParams
 from smoothxg_tpu.ops.poa_pallas_fused import _compiled_fused
-from smoothxg_tpu_torch.ops.poa_code import (CodeCaps, from_fused_layout,
-                                             poa_code, poa_code_reference,
-                                             to_fused_layout)
+from smoothxg_tpu_torch.ops.poa_code import (VW_MAX, CodeCaps,
+                                             from_fused_layout, poa_code,
+                                             poa_code_reference,
+                                             table_bytes, to_fused_layout)
 from smoothxg_tpu_torch.ops.poa_engine import TorchPOAEngine
 from smoothxg_tpu_torch.ops.poa_win import (WinCaps, pack_blocks,
-                                            poa_win_reference)
+                                            poa_win_reference, row_stride)
 from smoothxg_tpu_torch.testing.synth import make_block, make_fan_in_block
 
 from test_poa_pallas_win import family
@@ -158,3 +161,37 @@ def test_layout_roundtrip():
     assert par[1].tolist() == [1, 4, 6, 2, 26, 1, 0, 30]
     with pytest.raises(ValueError):
         from_fused_layout(*planes, LW, RW + 1)
+
+
+@pytest.mark.parametrize("lens,LW,LS", [
+    ([37, 5], 256, 64), ([31], 256, 32), ([32, 0], 256, 64),
+    ([300, 90], 256, 256), ([255], 256, 256), ([99], 100, 128),
+    ([1100, 950], 4096, 1120)])
+def test_row_stride_is_the_longest_sequence_rounded_to_32(lens, LW, LS):
+    """LS covers columns 0..L of the longest sequence that fits LW; a
+    longer one (which overflows) takes the widest stride."""
+    slen = torch.tensor([lens], dtype=torch.int32)
+    assert row_stride(slen, LW) == LS
+    assert LS % 32 == 0 and LS < LW + 32
+
+
+def test_scratch_is_sized_by_the_row_stride():
+    """At the main path's tier a full-width block takes 571 MB, one of
+    ~1.1 kb 156 MB; the graph tables (45 B a node at 8 slots) fit 227 KB
+    of shared memory at VW 4352, not at 8704."""
+    caps = CodeCaps(8704, 4096, True, False)
+    assert 4 * caps.scratch_words(4096) == 570_907_184
+    assert 4 * caps.scratch_words(1120) == 156_392_048
+    assert table_bytes(8704, 8, 4096, False) == 416_304 > 232_448
+    assert table_bytes(4352, 8, 1120, False) == 202_608 < 232_448
+    banded = CodeCaps(8704, 4096, True, True)
+    # the band tables: 4 int16 a row, padded to 16 bytes
+    assert banded.scratch_words(64) - caps.scratch_words(64) == 17_412
+
+
+def test_node_ids_must_fit_int16():
+    rng = np.random.default_rng(3)
+    ins = pack_blocks([(make_block(rng, 40, 2, 0.05), POAParams(*P_DEF))],
+                      LW)
+    with pytest.raises(ValueError, match="int16"):
+        poa_code(*ins, CodeCaps(VW_MAX + 1, LW, True, False))

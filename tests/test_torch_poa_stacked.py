@@ -4,7 +4,8 @@ _compiled_stacked, interpret mode, K = 2 blocks per grid step) and the
 numpy oracle FusedPOA, at 4 predecessor slots; the engine's
 kernel="stacked" tiers; and the refusal of windowed tiers.  (The engine
 against FusedPallasEngine(kernel="stacked") is in
-test_torch_stacked_engine.py.)  Inputs are seeded with numpy; tolerance:
+test_torch_stacked_engine.py.)  Also the scratch and graph-table sizes at
+the launch's row stride.  Inputs are seeded with numpy; tolerance:
 none, all outputs are integers.  Helpers as in test_torch_poa_code.py."""
 import functools
 
@@ -17,10 +18,11 @@ from smoothxg_tpu.ops.poa_pallas_stacked import _compiled_stacked
 from smoothxg_tpu_torch.ops.poa_code import CodeCaps, poa_code_reference
 from smoothxg_tpu_torch.ops.poa_engine import TorchPOAEngine
 from smoothxg_tpu_torch.ops.poa_host import POAParams as PortParams
+from smoothxg_tpu_torch.ops.poa_code import VW_MAX, table_bytes
 from smoothxg_tpu_torch.ops.poa_stacked import (from_stacked_layout,
                                                 poa_stacked,
                                                 poa_stacked_reference,
-                                                stacked_caps,
+                                                scratch_words, stacked_caps,
                                                 to_stacked_layout)
 from smoothxg_tpu_torch.ops.poa_win import WinCaps, pack_blocks
 from smoothxg_tpu_torch.testing.synth import make_block, make_fan_in_block
@@ -112,3 +114,23 @@ def test_stacked_layout_needs_whole_grid_steps():
         from_stacked_layout(*planes, 2, LW, RW)
     seqs, slen, nseq, _ = from_stacked_layout(*planes, 3, LW, RW)
     assert nseq.tolist() == [2, 2, 2] and slen[0, 0] == 40
+
+
+def test_scratch_and_tables_at_the_row_stride():
+    """14 B a cell at the row stride rounded up to 128 (1,120 -> 1,152);
+    the tables (29 B a node at 4 slots) and one warp's row buffers (7 B a
+    column of that stride, and the sequence) fit 227 KB of shared memory
+    at the main path's (4352, 2048) tier, not at VW 8704."""
+    caps = stacked_caps(4352, 2048, True, False)
+    assert 4 * scratch_words(caps, 2048) == 124_947_744
+    assert 4 * scratch_words(caps, 1120) == 70_338_144
+    assert table_bytes(4352, 4, 2048, False) == 138_528
+    assert table_bytes(4352, 4, 1120, False) + 7 * 1152 + 1120 < 232_448
+    assert table_bytes(8704, 4, 1120, False) > 232_448
+
+
+def test_node_ids_must_fit_int16():
+    rng = np.random.default_rng(3)
+    ins = pack_blocks([(make_block(rng, 40, 2, 0.05), PortParams())], LW)
+    with pytest.raises(ValueError, match="int16"):
+        poa_stacked(*ins, stacked_caps(VW_MAX + 1, LW, True, False))

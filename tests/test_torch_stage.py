@@ -4,7 +4,9 @@ poa_stacked_reference) at stages 0, 1 and 2 against the Pallas kernels
 they replace (ops/poa_pallas_fused._compiled_fused and ops/
 poa_pallas_stacked._compiled_stacked, interpret mode, the same stage), and
 the kernel sources csrc/poa_code.cu (stages 0-7) and csrc/poa_stacked.cu
-(stages 0-2) on the CPU emulation against the plain versions.  Stage 1
+(stages 0-2) on the CPU emulation against the plain versions, with the
+graph tables in shared memory and, for stages 1 and 2, in device memory
+(VW 8704).  Stage 1
 stops each round at the end cell and stage 2 after the traceback, so the
 graph stays the seed chain of sequence 0 and only path 0 is written; the
 Pallas kernels leave the other paths unwritten, the port leaves them -1.
@@ -26,7 +28,7 @@ from smoothxg_tpu_torch.ops.poa_host import POAParams as PortParams
 from smoothxg_tpu_torch.ops.poa_stacked import (poa_stacked,
                                                 poa_stacked_reference,
                                                 scratch_words, stacked_caps)
-from smoothxg_tpu_torch.ops.poa_win import pack_blocks
+from smoothxg_tpu_torch.ops.poa_win import pack_blocks, row_stride
 from smoothxg_tpu_torch.testing import cuda_emu
 from smoothxg_tpu_torch.testing.synth import make_block
 
@@ -117,8 +119,7 @@ def test_stages_are_checked():
 def exes(tmp_path_factory):
     d = tmp_path_factory.mktemp("stage")
     return {"code": cuda_emu.build("poa_code", str(d / "code")),
-            "stacked": cuda_emu.build("poa_stacked", str(d / "stk"),
-                                      sms=2)}
+            "stacked": cuda_emu.build("poa_stacked", str(d / "stk"))}
 
 
 def _emu_inputs(local: bool):
@@ -129,23 +130,40 @@ def _emu_inputs(local: bool):
     return pack_blocks([(sq, p) for sq in blocks], 128)
 
 
+def _emu_stage(exes, kernel, stage, local, VW):
+    """The emulated kernel at a stage (poa_stacked on 2 emulated SMs: one
+    thread block of 2 warps) against the plain version; returns the
+    launch geometry."""
+    ins = _emu_inputs(local)
+    LS = row_stride(ins[1], 128)
+    if kernel == "code":
+        caps = CodeCaps(VW, 128, local, False)
+        got, geo = cuda_emu.run_geometry(exes[kernel], *ins, caps,
+                                         caps.scratch_words(LS), stage=stage,
+                                         LS=LS)
+        want = poa_code_reference(*ins, caps, stage)
+    else:
+        caps = stacked_caps(VW, 128, local, False)
+        got, geo = cuda_emu.run_geometry(exes[kernel], *ins, caps,
+                                         scratch_words(caps, LS),
+                                         stage=stage, LS=LS, sms=2)
+        want = poa_stacked_reference(*ins, caps, stage)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert want[0][:, 1].tolist() == [0, 0]
+    return geo
+
+
 @pytest.mark.parametrize("kernel,stage,local", [
     *[("code", s, True) for s in range(8)],
     *[("code", s, False) for s in range(3)],
     *[("stacked", s, lc) for s in range(3) for lc in (True, False)]])
 def test_kernel_source_matches_plain_version_at_each_stage(exes, kernel,
                                                            stage, local):
-    ins = _emu_inputs(local)
-    if kernel == "code":
-        caps = CodeCaps(256, 128, local, False)
-        got = cuda_emu.run(exes[kernel], *ins, caps, caps.scratch_words(),
-                           stage=stage)
-        want = poa_code_reference(*ins, caps, stage)
-    else:
-        caps = stacked_caps(256, 128, local, False)
-        got = cuda_emu.run(exes[kernel], *ins, caps, scratch_words(caps),
-                           stage=stage)
-        want = poa_stacked_reference(*ins, caps, stage)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    assert want[0][:, 1].tolist() == [0, 0]
+    assert _emu_stage(exes, kernel, stage, local, 256)["tables"] == "shared"
+
+
+@pytest.mark.parametrize("kernel,stage", [(k, s) for k in ("code", "stacked")
+                                          for s in (1, 2)])
+def test_stage_outputs_with_device_tables(exes, kernel, stage):
+    assert _emu_stage(exes, kernel, stage, True, 8704)["tables"] == "device"
