@@ -8,7 +8,8 @@ result:
   1. device: CUDA required; the card's name, power limit and SM clock.
   2. build:  csrc/*.cu (poa_win, poa_round, poa_code, poa_stacked,
      probes) compiled from the checkout, one nvcc process per source
-     started together and one link (each kernel's ptxas registers: the
+     started together and one link (each kernel's ptxas registers: every
+     instantiation of poa_win and poa_round with its stack and spills, the
      stage-0 instantiations of poa_code and poa_stacked, every stage, the
      probe kernels' range by family); the port's
      host C++ libraries (csrc/host/*.cpp) with g++; the JAX package's
@@ -17,6 +18,9 @@ result:
      whole-block CUDA kernel and its plain PyTorch version (exact equality
      on meta, exp, paths), every block also held against the native C++
      engine; kernel time against the plain version's on a main-path block.
+     Each launch prints its geometry (where the graph tables sit, the row
+     stride LS, shared bytes, blocks an SM, the instantiation's ptxas
+     registers, stack and spills), as do the main paths' launches.
   4. main path: the port CLI (`-r 16 -j 5k -e 5k -l 700,900,1100 -m out.maf
      -t 1`) on a seeded 16 x 80 kb synthetic pangenome; exit 0 implies the
      lace validation passed; the kernel must carry >= 90% of the blocks.
@@ -27,7 +31,12 @@ result:
      kernel's code packing: L > 2^15, V > 2^16) through the per-round CUDA
      kernel and its plain PyTorch version (exact equality on codes and
      meta), a subset decoded and held against the oracle poa_host.align;
-     kernel time against the plain version's on a main-path task.
+     kernel time against the plain version's on a main-path task.  Each
+     launch prints its geometry (threads a block, one-tile rows with the
+     ring of recent rows in shared memory or tiled rows, where the sequence
+     and the row tables sit, shared bytes, blocks an SM, ptxas registers,
+     stack and spills); the over-int16 and the long-query tasks take their
+     own instantiations on the card.
   7. round main path: the port CLI with --engine pallas and the same flags
      on the same input; >= 90% of the round tasks on the kernel, GFA and
      MAF sha256 equal to phase 5's.
@@ -298,7 +307,8 @@ def kernel_phase(torch, dev, clock_mhz):
     import numpy as np
     from smoothxg_tpu_torch.ops.poa_engine import POAParams, TorchPOAEngine
     from smoothxg_tpu_torch.ops.poa_win import (WinCaps, pack_blocks,
-                                                poa_win, poa_win_reference)
+                                                poa_win, poa_win_reference,
+                                                row_stride)
     from smoothxg_tpu_torch.testing.synth import make_block
     from smoothxg_tpu_torch.tools.time_chase import (PHASE3_PLAN,
                                                      phase3_blocks)
@@ -328,7 +338,9 @@ def kernel_phase(torch, dev, clock_mhz):
         say(f"kernel tier V{VW}xL{LW}xW{W} local={local} banded={banded}: "
             f"{nb} blocks equal to the plain version, "
             f"{int((got[0][:, 1] == 0).sum())} equal to native; peak device "
-            f"memory {per_block / 1e6:.1f} MB per block of the launch")
+            f"memory {per_block / 1e6:.1f} MB per block of the launch; "
+            f"geometry " + geometry_line("poa_win", nb, caps,
+                                         row_stride(ins[1], LW)))
     if n_blocks < 200:
         fail(f"only {n_blocks} blocks compared")
 
@@ -353,6 +365,11 @@ def kernel_phase(torch, dev, clock_mhz):
     full_ms = time_full_card(
         torch, dev, poa_win,
         lambda VW, LW: WinCaps(VW, LW, LW, True, False), blk, p)
+    for B, c in ((1, caps), (132, caps),
+                 (FULL_COPIES, WinCaps(*FULL_CAPS, FULL_CAPS[1], True,
+                                       False))):
+        say("kernel timing geometry: " + geometry_line(
+            "poa_win", B, c, row_stride(cpu_ins[1], c.LW)))
     t0 = time.perf_counter()
     for _ in range(4):
         native.poa_block_batch(one)
@@ -388,37 +405,15 @@ def round_phase(torch, dev, clock_mhz):
     from smoothxg_tpu_torch.ops.poa_round import (decode_moves, pack_tasks,
                                                   poa_round,
                                                   poa_round_reference)
-    from smoothxg_tpu_torch.testing.synth import (make_fan_in_task,
-                                                  make_round_task)
+    from smoothxg_tpu_torch.tools.time_chase import (round_groups,
+                                                     round_timing_task)
+    # the seeded plan (local and global, V up to ~4,000, L up to ~2,000),
+    # in-degrees 2-15, and past the Pallas kernel's 15/16-bit code
+    # packing: a local query longer than 2^15 that ends in the graph's
+    # sequence (read from device memory, not shared), and a global query
+    # against a chain of more than 2^16 nodes (row tables in device memory)
     rng = np.random.default_rng(SEED + 1)
-    # (local, tasks, (min L, max L), sequences in the graph + 1, div)
-    plan = [(True, 60, (150, 600), (3, 8), 0.03),
-            (False, 60, (150, 600), (3, 8), 0.03),
-            (True, 30, (600, 1200), (4, 12), 0.05),
-            (False, 30, (600, 1200), (4, 12), 0.05),
-            (True, 6, (1800, 2000), (10, 12), 0.12),
-            (False, 6, (1800, 2000), (10, 12), 0.12)]
-    groups = []
-    for local, nt, (lo, hi), (smin, smax), div in plan:
-        p = poa_host.POAParams(local=local)
-        groups.append((local, [make_round_task(
-            rng, int(rng.integers(lo, hi)), int(rng.integers(smin, smax + 1)),
-            div, p) for _ in range(nt)]))
-    for local in (True, False):
-        p = poa_host.POAParams(local=local)
-        groups.append((local, [make_fan_in_task(rng, w, 200, p)
-                               for w in range(2, 16)]))
-    # past the Pallas kernel's 15/16-bit code packing: a local query longer
-    # than 2^15 that ends in the graph's sequence (read from global memory,
-    # not shared), and a global query against a chain of more than 2^16
-    # nodes
-    p = poa_host.POAParams(local=True)
-    g, q, _ = make_round_task(rng, 200, 2, 0.03, p)
-    groups.append((True, [(g, np.concatenate(
-        [rng.choice(np.frombuffer(b"ACGT", np.uint8), 1 << 15), q]), p)]))
-    p = poa_host.POAParams(local=False)
-    g, q, _ = make_round_task(rng, 66_000, 2, 0.01, p)
-    groups.append((False, [(g, q[30_000:30_060].copy(), p)]))
+    groups = round_groups(rng)
     n_tasks = n_dec = max_err = 0
     degrees: set = set()
     vmax = lmax = 0
@@ -447,18 +442,17 @@ def round_phase(torch, dev, clock_mhz):
             degrees.update(len(ps) for ps in g.preds)
             vmax, lmax = max(vmax, g.n_nodes()), max(lmax, len(q))
         n_tasks += len(tasks)
-        say(f"round kernel local={local}: {len(tasks)} tasks (VW "
-            f"{ins[3].shape[1]}, LS {ins[6].shape[1]}, P {ins[5].shape[2]}) "
-            f"equal to the plain version")
+        say(f"round kernel local={local}: {len(tasks)} tasks equal to the "
+            f"plain version; geometry " + round_geometry_line(
+                ins[3].shape[1], ins[6].shape[1], ins[5].shape[2]))
     if n_tasks < 200:
         fail(f"only {n_tasks} round tasks compared")
     if not set(range(1, 9)) <= degrees or max(degrees) <= 8:
         fail(f"in-degrees covered: {sorted(degrees)}")
 
     # timing on a main-path task shape: a ~1 kb query against a graph of
-    # seven ~1 kb sequences (V ~ 1,200)
-    p = poa_host.POAParams(local=True)
-    task = make_round_task(rng, 1000, 8, 0.03, p)
+    # seven ~1 kb sequences (V ~ 1,200; tools/time_chase.round_timing_task)
+    task = round_timing_task(rng)
     cpu_ins, _ = pack_tasks([task])
     t0 = time.perf_counter()
     want = poa_round_reference(*cpu_ins, True)
@@ -486,6 +480,9 @@ def round_phase(torch, dev, clock_mhz):
     batch_ms = ev0.elapsed_time(ev1)
     cells, pcells = round_dp_work(task[0], len(task[1]))
     bound_ms = int32_bound_ms(fill_ops(cells, pcells, True), clock_mhz)
+    say(f"round kernel timing geometry (the same for 1 and {nb} tasks): "
+        + round_geometry_line(cpu_ins[3].shape[1], cpu_ins[6].shape[1],
+                              cpu_ins[5].shape[2]))
     say(f"round kernel timing, one main-path task (V={task[0].n_nodes()}, "
         f"L={len(task[1])}, local): kernel {ms:.3f} ms, plain version "
         f"{plain_ms:.1f} ms; {nb}-task launch {batch_ms:.1f} ms "
@@ -501,17 +498,42 @@ def round_phase(torch, dev, clock_mhz):
 
 
 def geometry_line(name: str, B: int, caps, LS: int) -> str:
-    """One code-chase launch's geometry: POA blocks per thread block (K),
+    """One whole-block launch's geometry: POA blocks per thread block (K),
     grid, where the graph tables sit, row stride, dynamic shared bytes,
-    and the ptxas registers of the stage-0 instantiation it runs."""
+    and the ptxas registers of the (stage-0) instantiation it runs."""
     from smoothxg_tpu_torch.ops import _build
     from smoothxg_tpu_torch.ops.poa_win import geometry
     g = geometry(name, B, caps, LS)
-    regs = used(chase_registers(_build.build_log["ptxas"]).get(
-        (name, 0, g["tables"]), ""))
+    key = ((g["tables"], "banded" if caps.banded else "full")
+           if name == "poa_win" else (0, g["tables"]))
+    rep = kernel_registers(_build.build_log["ptxas"]).get((name, key), "")
+    per_sm = ""
+    if name == "poa_win":
+        import torch
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        per_sm = f", {2 if B > sms else 1} blocks an SM of 256 threads"
     return (f"{B} blocks at V{caps.VW}xL{caps.LW}: K {g['per_block']}, grid "
             f"{g['grid']}, tables in {g['tables']} memory, LS {LS}, "
-            f"{g['smem']} B shared, {regs} registers")
+            f"{g['smem']} B shared{per_sm}, {used(rep)} registers, "
+            f"{spilled(rep)}")
+
+
+def round_geometry_line(VW: int, LS: int, P: int) -> str:
+    """One poa_round launch's geometry at the batch's largest V, L and
+    in-degree: threads a block, one-tile rows with the ring or tiles,
+    where the sequence and the row tables sit, dynamic shared bytes,
+    blocks an SM, and the ptxas registers of the instantiation it runs."""
+    from smoothxg_tpu_torch.ops import _build
+    from smoothxg_tpu_torch.ops.poa_round import geometry
+    g = geometry(VW, LS, P)
+    key = ("ring" if g["ring"] else "tiled", g["tables"])
+    rep = kernel_registers(_build.build_log["ptxas"]).get(
+        ("poa_round", key), "")
+    return (f"VW {VW}, LS {LS}, P {P}: {g['threads']} threads, "
+            f"{'one-tile rows, ring in shared memory' if g['ring'] else 'tiled rows'}"
+            f", sequence in {g['seq']} memory, tables in {g['tables']} "
+            f"memory, {g['smem']} B shared, {g['per_sm']} blocks an SM, "
+            f"{used(rep)} registers, {spilled(rep)}")
 
 
 def chase_phase(torch, dev, clock_mhz, name: str, timing: dict):
@@ -637,18 +659,17 @@ def block_main_path(tag: str, own: str, run, clock_mhz) -> int:
                     for b, g in zip(blocks, graphs))
         return graphs
 
-    # each code-chase launch's geometry, counted by kind
+    # each launch's geometry, counted by kind
     geos: dict = {}
     launch = TorchPOAEngine._launch
 
     def launch_spy(self, blocks, chunk, ti, local, banded):
         out = launch(self, blocks, chunk, ti, local, banded)
-        if self.kernel != "win":
-            VW, LW, W = self.tiers[ti]
-            line = geometry_line(own, len(chunk),
-                                 self._kernel(VW, LW, W, local, banded)[1],
-                                 stride_for(out[4], LW))
-            geos[line] = geos.get(line, 0) + 1
+        VW, LW, W = self.tiers[ti]
+        line = geometry_line(own, len(chunk),
+                             self._kernel(VW, LW, W, local, banded)[1],
+                             stride_for(out[4], LW))
+        geos[line] = geos.get(line, 0) + 1
         return out
 
     TorchPOAEngine.poa_block_batch = spy
@@ -838,13 +859,18 @@ def stage_phase(torch, dev, timing: dict) -> None:
 
 
 def ptxas_registers(log: str) -> dict:
-    """{kernel entry (mangled): 'Used N registers, ...'} from ptxas -v."""
-    regs, entry = {}, None
+    """{kernel entry (mangled): 'Used N registers, ...; N bytes stack
+    frame, N bytes spill stores, N bytes spill loads'} from ptxas -v."""
+    regs, entry, stack = {}, None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
+            stack = ""
+        elif entry and "stack frame" in ln:
+            stack = ln.strip()
         elif entry and "registers" in ln:
-            regs[entry] = ln.split(":", 1)[-1].strip()
+            regs[entry] = ln.split(":", 1)[-1].strip() + (
+                f"; {stack}" if stack else "")
             entry = None
     return regs
 
@@ -855,33 +881,53 @@ def used(report: str) -> int:
         else -1
 
 
-def chase_registers(log: str) -> dict:
-    """{(kernel, stage, tables 'shared' / 'device'): ptxas report} of the
-    code-chase kernels' instantiations poa_<x>_kernel<STAGE,
-    SMEM_TABLES>."""
+def spilled(report: str) -> str:
+    """'stack S B, spills T/L B' of a ptxas report line."""
+    import re
+    m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                  r"(\d+) bytes spill loads", report)
+    return (f"stack {m[1]} B, spills {m[2]}/{m[3]} B" if m
+            else "stack ? B, spills ?")
+
+
+def kernel_registers(log: str) -> dict:
+    """{(kernel, template arguments): ptxas report} of the POA kernels'
+    instantiations: poa_code_kernel / poa_stacked_kernel<STAGE,
+    SMEM_TABLES> as (stage, 'shared' / 'device'), poa_win_kernel<
+    SMEM_TABLES, BANDED> as ('shared' / 'device', 'full' / 'banded'),
+    poa_round_kernel<RING, TSMEM> as ('ring' / 'tiled', 'shared' /
+    'device')."""
+    import re
     out = {}
     for e, r in ptxas_registers(log).items():
-        for name in ("poa_code", "poa_stacked"):
-            tag = f"{name}_kernelILi"
-            if tag in e:
-                stage, rest = e.split(tag)[1].split("E", 1)
-                tables = "shared" if rest.startswith("Lb1") else "device"
-                out[(name, int(stage), tables)] = r
+        m = re.search(r"(poa_(?:win|round|code|stacked))_kernelI"
+                      r"((?:L[bi]\d+E)+)E", e)
+        if not m:
+            continue
+        name = m[1]
+        args = [int(v) for _, v in re.findall(r"L([bi])(\d+)E", m[2])]
+        where = ("device", "shared")
+        if name in ("poa_code", "poa_stacked"):
+            key = (args[0], where[args[1]])
+        elif name == "poa_win":         # <SMEM_TABLES, BANDED>
+            key = (where[args[0]], ("full", "banded")[args[1]])
+        else:
+            key = (("tiled", "ring")[args[0]], where[args[1]])
+        out[(name, key)] = r
     return out
 
 
 def build_summary(log: str) -> str:
-    """Each POA kernel's registers (the code-chase kernels' stage-0
-    instantiations with the graph tables in device and in shared memory
-    first, then every stage's count), and each probe family's register
-    range."""
+    """Each POA kernel's registers, stack and spills (the code-chase
+    kernels' stage-0 instantiations with the graph tables in device and in
+    shared memory first, then every stage's count; every instantiation of
+    poa_win and poa_round), and each probe family's register range."""
     regs = ptxas_registers(log)
-    chase = chase_registers(log)
+    inst = kernel_registers(log)
     parts = []
     for name in KERNELS[:4]:
-        own = {e: r for e, r in regs.items() if f"{name}_kernel" in e}
-        mine = {k[1:]: r for k, r in chase.items() if k[0] == name}
-        if mine:
+        mine = {k: r for (n, k), r in inst.items() if n == name}
+        if name in ("poa_code", "poa_stacked"):
             parts.append(
                 f"{name}_kernel stage 0: device tables "
                 f"{mine.get((0, 'device'), '?')}; shared tables "
@@ -889,8 +935,9 @@ def build_summary(log: str) -> str:
                 + ", ".join(f"{st}/{t[0]}: {used(r)}"
                             for (st, t), r in sorted(mine.items())) + ")")
         else:
-            parts.append(f"{name}_kernel: "
-                         f"{next(iter(own.values()), 'ptxas: no report')}")
+            parts.append(f"{name}_kernel " + ("; ".join(
+                f"<{', '.join(k)}>: {used(r)} registers, {spilled(r)}"
+                for k, r in sorted(mine.items())) or "ptxas: no report"))
     for fam in PROBES:
         own = [used(r) for e, r in regs.items() if f"{fam}_" in e]
         parts.append(f"{fam} kernels: {len(own)} instantiations, "
@@ -1007,11 +1054,16 @@ def main() -> None:
     # each launch's DP work, counted from its tasks as it launches (the
     # graphs grow after the round)
     rwork = []
+    rshapes = []                 # each launch's (VW, LS, P)
     launch = TorchRoundPOAEngine._launch
 
     def round_spy(self, tasks, chunk, local):
         rwork.extend((*round_dp_work(tasks[t][0], len(tasks[t][1])), local)
                      for t in chunk)
+        rshapes.append((
+            max(1, *(tasks[t][0].n_nodes() for t in chunk)),
+            max(1, *(len(tasks[t][1]) for t in chunk)),
+            max([1] + [len(ps) for t in chunk for ps in tasks[t][0].preds])))
         return launch(self, tasks, chunk, local)
 
     TorchRoundPOAEngine._launch = round_spy
@@ -1041,6 +1093,20 @@ def main() -> None:
         f"stats {json.dumps(st)}; DP work of its {len(rwork)} launched "
         f"tasks {rcells} cells, {rpcells} extra pred cells, bound "
         f"{rbound:.3f} ms")
+    from smoothxg_tpu_torch.ops.poa_round import geometry as round_geometry
+    rgeos: dict = {}              # launches and shared bytes, by layout
+    for shape in rshapes:
+        g = round_geometry(*shape)
+        key = (g["threads"], g["ring"], g["seq"], g["tables"], g["per_sm"])
+        rgeos.setdefault(key, []).append(g["smem"])
+    say(f"round main path launch geometry (VW {min(v for v, _, _ in rshapes)}"
+        f"-{max(v for v, _, _ in rshapes)}, LS "
+        f"{min(ls for _, ls, _ in rshapes)}-{max(ls for _, ls, _ in rshapes)}"
+        f", P up to {max(p for _, _, p in rshapes)}): " + "; ".join(
+            f"{len(sm)} x [{t} threads, "
+            f"{'ring' if ring else 'tiled'}, sequence in {sq} memory, "
+            f"tables in {tb} memory, {min(sm)}-{max(sm)} B shared, {ps} "
+            f"blocks an SM]" for (t, ring, sq, tb, ps), sm in rgeos.items()))
     if on_kernel < 0.9 * tasks:
         fail(f"only {on_kernel}/{tasks} round tasks ran on the kernel")
     same_bytes("round main path", out3, maf3, out2, maf2)

@@ -419,26 +419,11 @@ poa_code_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ sle
     }
 }
 
-// One POA block a thread block; two thread blocks an SM once the batch
-// outnumbers the SMs, else one.  The tables in shared memory when they fit
-// beside the sequence in that share of the SM, else in device scratch.
-// Decided before the launch, from the device's limits.
 inline cudaError_t code_geometry(int B, int VW, int pcap, int LS,
                                  int banded, Geometry& g) {
-    int sms = 0, smem_block = 0, smem_sm = 0;
-    const cudaError_t err = device_limits(sms, smem_block, smem_sm);
-    if (err != cudaSuccess) return err;
-    const int per_sm = B > sms ? 2 : 1;
-    long budget = smem_sm / per_sm - 1024;         // 1 KB per block reserved
-    if (budget > smem_block) budget = smem_block;
-    budget -= STATIC_SMEM;
-    const size_t tb = table_bytes((size_t)VW + 1, pcap, LS, banded);
-    if ((long)LS > budget) return cudaErrorInvalidValue;
-    g.tables = (long)(tb + LS) <= budget;
-    g.per_block = 1;
-    g.grid = B;
-    g.smem = (int)(LS + (g.tables ? tb : 0));
-    return cudaSuccess;
+    return one_block_geometry(B, table_bytes((size_t)VW + 1, pcap, LS,
+                                             banded),
+                              LS, STATIC_SMEM, g);
 }
 
 constexpr int STAGES = 8;

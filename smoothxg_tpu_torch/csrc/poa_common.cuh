@@ -1,6 +1,6 @@
-// poa_common.cuh — device code shared by the POA kernels (poa_win.cu,
-// poa_round.cu): the block shape, the score floor and the two block-wide
-// reductions a DP row needs.  Everything sits in an anonymous namespace,
+// poa_common.cuh — device code shared by the whole-block POA kernels
+// (poa_win.cu, poa_code.cu, poa_stacked.cu): the block shape, the score
+// floor and the two block-wide reductions a DP row needs.  Everything sits in an anonymous namespace,
 // so every translation unit keeps its own copy.
 #pragma once
 

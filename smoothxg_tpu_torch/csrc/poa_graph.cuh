@@ -1,23 +1,20 @@
 // poa_graph.cuh — the graph side of the whole-block POA kernels
-// (poa_code.cu: one thread block per POA block; poa_stacked.cu: one warp
-// per POA block; poa_win.cu, the windowed kernel): the per-block graph
-// tables, the seed chain, the topological walk, the rank band, the code
-// word and its chase, the guarded aligned-ring threading, the export, and
-// the launch geometry the code-chase kernels take from the device.  The
-// semantics are FusedPOA's (+ ops/poa_host), written once for all three
-// kernels.  Routines named *_par are run by every thread of a group
-// (`first` is the thread's rank in the group, `stride` the group's size);
-// the others by one thread.
+// (poa_code.cu and poa_win.cu: one thread block per POA block;
+// poa_stacked.cu: one warp per POA block): the per-block graph tables, the
+// seed chain, the topological walk, the rank band, the code word and its
+// chase, the guarded aligned-ring threading, the export, and the launch
+// geometry the kernels take from the device.  The semantics are FusedPOA's
+// (+ ops/poa_host), written once for all three kernels.  Routines named
+// *_par are run by every thread of a group (`first` is the thread's rank
+// in the group, `stride` the group's size); the others by one thread.
 //
-// Two table layouts, one set of routines (templates on the layout):
-// `Graph`, int32 words in device scratch (poa_win.cu), and `Tables`, the
-// code-chase kernels' compact one (node ids, positions and rows int16,
+// The tables are compact, `Tables` (node ids, positions and rows int16,
 // bases and counts int8: 29 B a node at 4 predecessor slots, 45 B at 8),
 // small enough for one block's shared memory at the smaller tiers.  A
-// code-chase kernel carves `Tables` from its dynamic shared memory when
-// its launch geometry says they fit (`Geometry::tables`), else from the
-// block's device scratch; the kernels are templates on that choice, so the
-// same routines compile to shared-memory or device-memory accesses.
+// kernel carves them from its dynamic shared memory when its launch
+// geometry says they fit (`Geometry::tables`), else from the block's
+// device scratch; the kernels are templates on that choice, so the same
+// routines compile to shared-memory or device-memory accesses.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,38 +54,9 @@ struct GraphT {
     Byte *base, *npred, *nsucc, *rnp, *rbase;
     int pcap;
 };
-using Graph = GraphT<int32_t, int32_t>;
 using Tables = GraphT<int16_t, int8_t>;
 
-// poa_win.cu's tables, int32 words (v1 = VW + 1):
-//   node tables  base pos ring nxt npred nsucc      6 * v1
-//                preds                              pcap * v1
-//   row tables   node np lo hi mr Mr                6 * v1
-//                pred rows                          pcap * v1
-//   target (LW), ring splices (2 * LW)              3 * LW
-// followed by the kernel's DP planes (no row bases: rbase stays null).
-__host__ __device__ inline size_t graph_words(size_t v1, int pcap, int LW) {
-    return (12 + 2 * (size_t)pcap) * v1 + 3 * (size_t)LW;
-}
-
-// carve them out of `sc`; returns the first word past them
-__device__ inline int32_t* graph_carve(Graph& k, int32_t* sc, size_t v1,
-                                       int pcap, int LW) {
-    k.pcap = pcap;
-    k.base = sc;          k.pos = sc + v1;       k.ring = sc + 2 * v1;
-    k.nxt = sc + 3 * v1;  k.npred = sc + 4 * v1; k.nsucc = sc + 5 * v1;
-    k.preds = sc + 6 * v1;
-    int32_t* rt = sc + (6 + pcap) * v1;
-    k.rnode = rt;         k.rnp = rt + v1;       k.rlo = rt + 2 * v1;
-    k.rhi = rt + 3 * v1;  k.rmr = rt + 4 * v1;   k.rMr = rt + 5 * v1;
-    k.rpreds = rt + 6 * v1;
-    k.rbase = nullptr;
-    k.target = sc + (12 + 2 * pcap) * v1;
-    k.spl = k.target + LW;
-    return sc + graph_words(v1, pcap, LW);
-}
-
-// The code-chase kernels' compact tables (LS = the launch's row stride):
+// The compact tables (LS = the launch's row stride):
 //   int16  pos ring nxt                 3 * v1   (node: position, ring, list)
 //          preds                        pcap * v1
 //          rnode                        v1       (row: its node)
@@ -425,6 +393,28 @@ inline cudaError_t device_limits(int& sms, int& smem_block, int& smem_sm) {
         err = cudaDeviceGetAttribute(
             &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
     return err;
+}
+
+// One POA block a thread block (poa_code.cu, poa_win.cu); two thread
+// blocks an SM once the batch outnumbers the SMs, else one.  The tables
+// (`tb` bytes) in shared memory when they fit beside the sequence (LS
+// bytes) in that share of the SM, else in device scratch; `static_smem`
+// bytes stay for the kernel's static buffers.
+inline cudaError_t one_block_geometry(int B, size_t tb, int LS,
+                                      int static_smem, Geometry& g) {
+    int sms = 0, smem_block = 0, smem_sm = 0;
+    const cudaError_t err = device_limits(sms, smem_block, smem_sm);
+    if (err != cudaSuccess) return err;
+    const int per_sm = B > sms ? 2 : 1;
+    long budget = smem_sm / per_sm - 1024;         // 1 KB per block reserved
+    if (budget > smem_block) budget = smem_block;
+    budget -= static_smem;
+    if ((long)LS > budget) return cudaErrorInvalidValue;
+    g.tables = (long)(tb + LS) <= budget;
+    g.per_block = 1;
+    g.grid = B;
+    g.smem = (int)(LS + (g.tables ? tb : 0));
+    return cudaSuccess;
 }
 
 // the geometry out of a C entry's int[4]

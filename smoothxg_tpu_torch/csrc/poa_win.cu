@@ -9,31 +9,45 @@
 // of the plain PyTorch version smoothxg_tpu_torch/ops/poa_win.py:
 // poa_win_reference, which is written line for line against this file.
 //
-// What bounds it on this card.  The algorithm has one parallel axis — the
-// columns of a DP row — wrapped in scalar graph work:
-//   * the fill: per row, up to pcap predecessor rows are read from device
-//     memory (they were written a few rows earlier, so they come from L2),
-//     the F channels need a block-wide prefix max, and the next row may
-//     read this one, so every row ends in a barrier.  Cost per row is one
-//     barrier per 2048-column tile plus one, and a couple of dependent L2
-//     round trips for the row's metadata;
-//   * the topological walk, the banded rank pass, the traceback and the
-//     threading are dependent chains of global loads (node tables live in
-//     device memory and stay resident in L2), run by thread 0 between
-//     barriers.
-// What the design does about it: per-row metadata (node, predecessor rows,
-// band) is precomputed once per round into row tables, in parallel where
-// the dependency allows, so each DP row starts with independent loads; the
-// F channels use the closed form F(j) = max_{k<j}(hq(k) + ext*k) - open -
-// ext*(j-1) as a warp-shuffle scan plus a scan of per-warp totals, with
-// the warp totals double-buffered so a tile needs one barrier; the local
-// end cell is tracked per thread during the fill and reduced once.
-// Parallelism across POA blocks comes from the grid: one thread block per
-// POA block, so a launch needs a batch of >= 132 blocks to fill the SMs.
+// What bounds it on this card: latency, not bytes or operations.  The
+// algorithm has one parallel axis — the columns of a DP row — wrapped in
+// scalar graph work: per row, the predecessor rows' round trip to L2, a
+// block-wide prefix max for the F channels and the barriers around it; per
+// round, the topological walk, the banded rank pass, the traceback and the
+// threading, chains of dependent table reads.
+// What the design does about it (that of poa_code.cu, with value planes
+// and stored windows):
+//   * the graph tables are poa_graph.cuh's compact `Tables` (int16 ids and
+//     rows, int8 bases and counts), in shared memory when they fit beside
+//     the launch's blocks per SM (`win_geometry`), else in device scratch;
+//     the kernel is a template on that placement;
+//   * full-width rows are stored at the launch's row stride LS (the batch's
+//     longest sequence + 1, rounded up to 32 columns) instead of the caps'
+//     W, so a launch's scratch follows its sequences; a banded launch keeps
+//     rows of W columns from the row's band floor (the window covers the
+//     whole band), rounded up to 8 for 16-byte stores;
+//   * each thread owns 8 consecutive columns: predecessor rows of a
+//     full-width row are read as two int4 loads a plane (a banded row's
+//     window starts at its own offset, so it reads scalars), and every
+//     store is two int4;
+//   * the next row's metadata (count, base, band, predecessor rows packed
+//     as int16 pairs) is issued before this row's scan;
+//   * at most 128 registers with no local arrays, so two blocks share an
+//     SM and cover each other's barriers;
+//   * the traceback runs in warp 0: every lane follows the same path; on
+//     full-width rows a run of up to 32 M moves along rows whose only
+//     predecessor is the row above is read ahead, one step a lane, and
+//     taken up to its first other step; any other step's plane reads (E1,
+//     E2 and the predecessors' H, one predecessor a lane) are issued
+//     together and the first match is a ballot, and the F origin is
+//     searched 32 columns at a time with a ballot for the nearest; the
+//     local end cell's column likewise.
+// The F channels use the closed form F(j) = max_{k<j}(hq(k) + ext*k) -
+// open - ext*(j-1) as a warp-shuffle scan plus a scan of per-warp totals,
+// double-buffered so a tile needs one barrier; the row-end barrier stays
+// (the next row reads this row's H at each thread's left neighbour).
 // Scores are int32 with the floor NEG = -2^30 (no int16 clamp), and the DP
-// planes (H, Hq, E1, E2: 16 bytes per cell) live in device memory.  The
-// graph side (tables, seed, walk, rank pass, threading, export) is
-// poa_graph.cuh's, shared with poa_code.cu and poa_stacked.cu.
+// planes (H, Hq, E1, E2: 16 bytes per cell) live in device memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c -Xcompiler
 //        -fPIC, one process per source, then one link into a shared
@@ -47,35 +61,89 @@
 
 namespace {
 
-// Per-block scratch: the graph tables (poa_graph.cuh), then the DP planes
-// H Hq E1 E2, each (VW + 1) x W int32 — mirrored by WinCaps.scratch_words
-// in ops/poa_win.py.
+constexpr int PCAP_MAX = 8;
+constexpr int STATIC_SMEM = 1024;    // above the kernel's static buffers
 
-__device__ __forceinline__ int32_t rd(const int32_t* plane, int W,
-                                      const int32_t* rlo, int row, int j) {
-    // column j of DP row `row`; cells outside the stored window are the
-    // floor by banded semantics (the window covers the whole band)
-    int jl = j - rlo[row];
-    return (jl >= 0 && jl < W) ? plane[(size_t)row * W + jl] : NEG;
+// stored columns of a DP row: the launch's row stride, or a banded
+// launch's window rounded up to 8
+__host__ __device__ inline int row_stride(int W, int LS, int banded) {
+    return banded ? (W + 7) & ~7 : LS;
 }
 
-__global__ void __launch_bounds__(NT)
+// device scratch of one POA block: the graph tables (used when they stay
+// in device memory), then the int32 planes H Hq E1 E2, each (VW + 1) x
+// row_stride — mirrored by WinCaps.scratch_words in ops/poa_win.py
+__host__ __device__ inline size_t block_bytes(size_t v1, int pcap, int W,
+                                              int LS, int banded) {
+    return table_bytes(v1, pcap, LS, banded)
+         + 16 * v1 * (size_t)row_stride(W, LS, banded);
+}
+
+// a row's metadata: predecessor count, node base, band, and the
+// predecessor rows, two int16 a word (slots past the count are stale)
+struct RowMeta {
+    int np, bv, blo, bhi;
+    int pr[PCAP_MAX / 2];
+};
+
+__device__ __forceinline__ RowMeta row_meta(const Tables& k, int i, int L,
+                                            int pcap, int banded) {
+    RowMeta r;
+    r.np = k.rnp[i];
+    r.bv = k.rbase[i];
+    r.blo = banded ? k.rlo[i] : 0;
+    r.bhi = banded ? k.rhi[i] : L;
+    const int16_t* rp = k.rpreds + (size_t)i * pcap;
+#pragma unroll
+    for (int p = 0; p < PCAP_MAX; p += 2) {
+        const int lo = p < pcap ? (uint16_t)rp[p] : 0;
+        const int hi = p + 1 < pcap ? (uint16_t)rp[p + 1] : 0;
+        r.pr[p / 2] = lo | (hi << 16);
+    }
+    return r;
+}
+
+// predecessor row of slot p (row 0, the virtual source, without any); the
+// word is selected, not indexed, so a slot that is not a constant keeps
+// the metadata in registers
+__device__ __forceinline__ int meta_row(const RowMeta& r, int p) {
+    const int w = p < 2 ? r.pr[0] : p < 4 ? r.pr[1] : p < 6 ? r.pr[2]
+                                                    : r.pr[3];
+    return r.np > 0 ? (w >> (16 * (p & 1))) & 0xFFFF : 0;
+}
+
+__device__ __forceinline__ int part(const int4& v, int c) {
+    return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// BANDED: rows in windows from their band floors, predecessor windows
+// read as scalars; else full-width rows read as int4s
+template <bool SMEM_TABLES, bool BANDED>
+__global__ void __launch_bounds__(NT, 2)
 poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen,
                const int32_t* __restrict__ nseq, const int32_t* __restrict__ params,
-               int32_t* meta, int32_t* exp_, int32_t* paths, int32_t* scratch,
-               int RW, int LW, int VW, int W, int pcap, int local, int banded) {
-    extern __shared__ int8_t s_seq[];        // the round's sequence, LW bytes
+               int32_t* meta, int32_t* exp_, int32_t* paths, int8_t* scratch,
+               int RW, int LW, int VW, int W, int pcap, int LS, int local) {
+    constexpr int banded = BANDED;
+    // dynamic: the tables (when in shared memory), then the round's
+    // sequence (LS bytes)
+    extern __shared__ int4 s_dyn[];
     __shared__ int s_w1[2][NWARP], s_w2[2][NWARP];
     __shared__ int s_rv[NWARP], s_rr[NWARP];
     __shared__ int s_ovf, s_V, s_Vc, s_head, s_gs, s_D;
 
     const int b = blockIdx.x;
-    const int tid = threadIdx.x;
+    const int tid = threadIdx.x, lane = tid & 31;
     const size_t v1 = (size_t)VW + 1;
-    const size_t plane = v1 * (size_t)W;
-    int32_t* sc = scratch + (size_t)b * (graph_words(v1, pcap, LW) + 4 * plane);
-    Graph k;
-    int32_t* H = graph_carve(k, sc, v1, pcap, LW);
+    const int RS = row_stride(W, LS, banded);
+    const size_t tb = table_bytes(v1, pcap, LS, banded);
+    const size_t plane = v1 * (size_t)RS;
+    int8_t* sm = (int8_t*)s_dyn;
+    int8_t* sc = scratch + (size_t)b * block_bytes(v1, pcap, W, LS, banded);
+    Tables k;
+    graph_carve(k, SMEM_TABLES ? sm : sc, v1, pcap, LS, banded);
+    int8_t* s_seq = sm + (SMEM_TABLES ? tb : 0);
+    int32_t* H = (int32_t*)(sc + tb);
     int32_t* Hq = H + plane;
     int32_t* E1 = Hq + plane;
     int32_t* E2 = E1 + plane;
@@ -84,31 +152,38 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
     const int32_t* lens = slen + (size_t)b * RW;
     const int32_t* pp = params + (size_t)b * 8;
     const int m = pp[0], n = pp[1], g = pp[2], e = pp[3], q = pp[4],
-              c = pp[5], wb = pp[6], wfm = pp[7];
+              c = pp[5];
     const int8_t* bseqs = seqs + (size_t)b * RW * LW;
     int32_t* bpaths = paths + (size_t)b * RW * LW;
-    int32_t* bexp = exp_ + (size_t)b * 3 * VW;
+
+    // column j of DP row `row`; cells outside the stored window are the
+    // floor by banded semantics (the window covers the whole band)
+    auto rd = [&](const int32_t* pl, int row, int j) -> int32_t {
+        const int jl = j - (banded ? (int)k.rlo[row] : 0);
+        return (jl >= 0 && jl < W) ? pl[(size_t)row * RS + jl] : NEG;
+    };
 
     for (size_t x = tid; x < (size_t)RW * LW; x += NT) bpaths[x] = -1;
     __syncthreads();
 
-    // ---- capacity check (every thread computes the same verdict) ----
+    // ---- capacity check (every thread computes the same verdict; LS is
+    // above every length that fits LW, see poa_win_launch) ----
     int ovf = (R < 1 || R > RW);
     int L0 = 0;
     if (!ovf) {
         L0 = lens[0];
         int maxL = 0;
         for (int r = 0; r < R; ++r) maxL = max(maxL, lens[r]);
-        ovf = L0 < 1 || L0 > VW || maxL > LW - 1
+        ovf = L0 < 1 || L0 > VW || maxL > LW - 1 || maxL > LS - 1
             || (!banded && maxL + 1 > W);
     }
     if (tid == 0) {
         s_ovf = ovf; s_Vc = L0; s_head = 0; s_gs = 0;
-        k.rlo[0] = 0;                          // row 0 stores [0, W)
+        if (banded) k.rlo[0] = 0;              // row 0 stores [0, W)
     }
     if (!ovf) {
         // row 0: the virtual source
-        for (int jl = tid; jl < W; jl += NT) {
+        for (int jl = tid; jl < RS; jl += NT) {
             int32_t h, hq;
             if (local) { h = 0; hq = 0; }
             else if (jl == 0) { h = 0; hq = 0; }
@@ -139,108 +214,156 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
             // min/max topological rank per row (abPOA band anchor)
             if (tid == 0) s_D = band_ranks(k, V);
             __syncthreads();
-            const int w = wb + (wfm * L) / 1000;
+            const int w = pp[6] + (pp[7] * L) / 1000;   // wb, wf_milli
             const int adj_l = max(0, s_D - L), adj_r = max(0, L - s_D);
             for (int i = 1 + tid; i <= V; i += NT) {
-                int lo = max(0, k.rmr[i] - w - adj_l);
-                int hi = min(L, k.rMr[i] + w + adj_r);
+                const int lo = max(0, k.rmr[i] - w - adj_l);
+                const int hi = min(L, k.rMr[i] + w + adj_r);
                 k.rlo[i] = lo; k.rhi[i] = hi;
                 if (hi - lo + 1 > W) s_ovf = 1;   // band wider than window
             }
-        } else {
-            for (int i = 1 + tid; i <= V; i += NT) { k.rlo[i] = 0; k.rhi[i] = L; }
+            __syncthreads();
+            if (s_ovf) break;
         }
-        __syncthreads();
-        if (s_ovf) break;
 
         // ---- DP fill, one row per topological position ----
         int tbest = INT_MIN, trow = 0;        // local end cell, per thread
         int buf = 0;
+        RowMeta cur = row_meta(k, 1, L, pcap, banded), nxt = cur;
         for (int i = 1; i <= V; ++i) {
-            const int v = k.rnode[i];
-            const int np = k.rnp[i];
-            const int bv = k.base[v];
-            const int c0 = k.rlo[i], bhi = k.rhi[i];
+            const int npr = cur.np > 0 ? cur.np : 1;
+            const int c0 = cur.blo, bhi = cur.bhi;
             const int c1 = min(c0 + W - 1, L);
-            int prow[8], poff[8];
-            const int npr = np > 0 ? np : 1;
-            for (int p = 0; p < npr; ++p) {
-                prow[p] = np > 0 ? k.rpreds[(size_t)i * pcap + p] : 0;
-                poff[p] = k.rlo[prow[p]];
-            }
             int carry1 = NEG + e * max(c0 - 1, 0);
             int carry2 = NEG + c * max(c0 - 1, 0);
             int rowbest = INT_MIN;
-            int32_t* Hi = H + (size_t)i * W;
-            int32_t* Hqi = Hq + (size_t)i * W;
-            int32_t* E1i = E1 + (size_t)i * W;
-            int32_t* E2i = E2 + (size_t)i * W;
+            int32_t* Hi = H + (size_t)i * RS;
+            int32_t* Hqi = Hq + (size_t)i * RS;
+            int32_t* E1i = E1 + (size_t)i * RS;
+            int32_t* E2i = E2 + (size_t)i * RS;
             for (int t0 = c0; t0 <= c1; t0 += TILE) {
                 const int jb = t0 + tid * CPT;
-                int hp[CPT + 1], hq[CPT];
+                const int jl0 = jb - c0;      // stored column of jb
+                int hq[CPT];
                 int t1 = INT_MIN, t2 = INT_MIN;
-                for (int x = 0; x <= CPT; ++x) hp[x] = NEG;
-                int x1[CPT], x2[CPT];
-                for (int x = 0; x < CPT; ++x) { x1[x] = NEG; x2[x] = NEG; }
                 if (jb <= c1) {
-                    for (int p = 0; p < npr; ++p) {
-                        const size_t rb = (size_t)prow[p] * W;
-                        for (int x = 0; x <= CPT; ++x) {
-                            int jl = jb - 1 + x - poff[p];
-                            if (jb - 1 + x <= c1 && jl >= 0 && jl < W)
-                                hp[x] = max(hp[x], H[rb + jl]);
+                    // predecessor maxima of H at columns jb-1 .. jb+CPT-1
+                    // and of E1, E2 at jb .. jb+CPT-1
+                    int hp[CPT + 1], x1[CPT], x2[CPT];
+#pragma unroll
+                    for (int x = 0; x <= CPT; ++x) hp[x] = NEG;
+#pragma unroll
+                    for (int x = 0; x < CPT; ++x) { x1[x] = NEG; x2[x] = NEG; }
+                    if constexpr (!BANDED) {
+#pragma unroll
+                        for (int p = 0; p < PCAP_MAX; ++p) {
+                            if (p >= npr) break;
+                            // full width: columns jb .. jb+7 as int4s
+                            const int32_t* rb = H + (size_t)meta_row(cur, p) * RS
+                                              + jb;
+                            const int4 a0 = ((const int4*)rb)[0];
+                            const int4 a1 = ((const int4*)rb)[1];
+                            const int4 b0 = ((const int4*)(rb + 2 * plane))[0];
+                            const int4 b1 = ((const int4*)(rb + 2 * plane))[1];
+                            const int4 d0 = ((const int4*)(rb + 3 * plane))[0];
+                            const int4 d1 = ((const int4*)(rb + 3 * plane))[1];
+                            hp[0] = max(hp[0], jb > 0 ? rb[-1] : NEG);
+#pragma unroll
+                            for (int x = 0; x < CPT; ++x) {
+                                hp[x + 1] = max(hp[x + 1],
+                                                part(x < 4 ? a0 : a1, x & 3));
+                                x1[x] = max(x1[x], part(x < 4 ? b0 : b1, x & 3));
+                                x2[x] = max(x2[x], part(x < 4 ? d0 : d1, x & 3));
+                            }
                         }
-                        for (int x = 0; x < CPT; ++x) {
-                            int jl = jb + x - poff[p];
-                            if (jb + x <= c1 && jl >= 0 && jl < W) {
-                                x1[x] = max(x1[x], E1[rb + jl]);
-                                x2[x] = max(x2[x], E2[rb + jl]);
+                    } else {
+                        // a window from each predecessor's band floor, one
+                        // predecessor at a time (the scalar window reads
+                        // need the registers an unrolled loop would take)
+#pragma unroll 1
+                        for (int p = 0; p < npr; ++p) {
+                            const int pr = meta_row(cur, p);
+                            const int poff = k.rlo[pr];
+                            const int32_t* rb = H + (size_t)pr * RS;
+#pragma unroll
+                            for (int x = 0; x <= CPT; ++x) {
+                                const int jl = jb - 1 + x - poff;
+                                if (jb - 1 + x <= c1 && jl >= 0 && jl < W)
+                                    hp[x] = max(hp[x], rb[jl]);
+                            }
+#pragma unroll
+                            for (int x = 0; x < CPT; ++x) {
+                                const int jl = jb + x - poff;
+                                if (jb + x <= c1 && jl >= 0 && jl < W) {
+                                    x1[x] = max(x1[x], rb[2 * plane + jl]);
+                                    x2[x] = max(x2[x], rb[3 * plane + jl]);
+                                }
                             }
                         }
                     }
+#pragma unroll
                     for (int x = 0; x < CPT; ++x) {
                         const int j = jb + x;
-                        if (j > c1) { hq[x] = NEG; continue; }
-                        int M = j == 0 ? NEG
-                            : hp[x] + ((int)s_seq[j - 1] == bv ? m : -n);
-                        int e1 = max(max(hp[x + 1] - g, x1[x] - e), NEG);
-                        int e2 = max(max(hp[x + 1] - q, x2[x] - c), NEG);
-                        int h = max(M, max(e1, e2));
-                        if (local) h = max(h, 0);
-                        if (j < c0 || j > bhi) { h = NEG; e1 = NEG; e2 = NEG; }
+                        int h = NEG, e1 = NEG, e2 = NEG;
+                        if (j <= c1) {
+                            const int M = j == 0 ? NEG
+                                : hp[x] + ((int)s_seq[j - 1] == cur.bv ? m : -n);
+                            e1 = max(max(hp[x + 1] - g, x1[x] - e), NEG);
+                            e2 = max(max(hp[x + 1] - q, x2[x] - c), NEG);
+                            h = max(M, max(e1, e2));
+                            if (local) h = max(h, 0);
+                            if (j < c0 || j > bhi) { h = NEG; e1 = NEG; e2 = NEG; }
+                            t1 = max(t1, h + e * j);
+                            t2 = max(t2, h + c * j);
+                        }
                         hq[x] = h;
-                        Hqi[j - c0] = h; E1i[j - c0] = e1; E2i[j - c0] = e2;
-                        t1 = max(t1, h + e * j);
-                        t2 = max(t2, h + c * j);
+                        x1[x] = e1;
+                        x2[x] = e2;
                     }
+                    ((int4*)(Hqi + jl0))[0] = make_int4(hq[0], hq[1], hq[2], hq[3]);
+                    ((int4*)(Hqi + jl0))[1] = make_int4(hq[4], hq[5], hq[6], hq[7]);
+                    ((int4*)(E1i + jl0))[0] = make_int4(x1[0], x1[1], x1[2], x1[3]);
+                    ((int4*)(E1i + jl0))[1] = make_int4(x1[4], x1[5], x1[6], x1[7]);
+                    ((int4*)(E2i + jl0))[0] = make_int4(x2[0], x2[1], x2[2], x2[3]);
+                    ((int4*)(E2i + jl0))[1] = make_int4(x2[4], x2[5], x2[6], x2[7]);
                 }
+                // the next row's metadata, one level of independent loads
+                // that land while this row scans and finishes
+                if (t0 == c0 && i < V) nxt = row_meta(k, i + 1, L, pcap, banded);
                 // block-wide exclusive prefix max of the thread totals
                 int ex1, ex2, tot1, tot2;
                 block_excl_max2(t1, t2, ex1, ex2, tot1, tot2, s_w1[buf],
                                 s_w2[buf]);
                 int g1 = max(carry1, ex1), g2 = max(carry2, ex2);
                 if (jb <= c1) {
+                    int hv[CPT];
+#pragma unroll
                     for (int x = 0; x < CPT; ++x) {
                         const int j = jb + x;
-                        if (j > c1) break;
-                        int h = hq[x];
-                        if (j > 0) {
-                            int f1 = g1 - g - e * (j - 1);
-                            int f2 = g2 - q - c * (j - 1);
-                            h = max(h, max(f1, f2));
+                        int h = NEG;
+                        if (j <= c1) {
+                            h = hq[x];
+                            if (j > 0) {
+                                const int f1 = g1 - g - e * (j - 1);
+                                const int f2 = g2 - q - c * (j - 1);
+                                h = max(h, max(f1, f2));
+                            }
+                            g1 = max(g1, hq[x] + e * j);
+                            g2 = max(g2, hq[x] + c * j);
+                            if (j > bhi) h = NEG;     // (j >= c0 = band floor)
+                            else rowbest = max(rowbest, h);
                         }
-                        g1 = max(g1, hq[x] + e * j);
-                        g2 = max(g2, hq[x] + c * j);
-                        if (j > bhi) h = NEG;     // (j >= c0 = band floor)
-                        else rowbest = max(rowbest, h);
-                        Hi[j - c0] = h;
+                        hv[x] = h;
                     }
+                    ((int4*)(Hi + jl0))[0] = make_int4(hv[0], hv[1], hv[2], hv[3]);
+                    ((int4*)(Hi + jl0))[1] = make_int4(hv[4], hv[5], hv[6], hv[7]);
                 }
                 carry1 = max(carry1, tot1);
                 carry2 = max(carry2, tot2);
                 buf ^= 1;
             }
             if (rowbest > tbest) { tbest = rowbest; trow = i; }
+            cur = nxt;
             __syncthreads();
         }
 
@@ -254,7 +377,7 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
             int hb = NEG - 1, hr = 0;
             for (int i = 1 + tid; i <= V; i += NT) {
                 if (k.nsucc[k.rnode[i]] != 0) continue;
-                int h = rd(H, W, k.rlo, i, L);
+                const int h = rd(H, i, L);
                 if (h > hb) { hb = h; hr = i; }
             }
             if (hr == 0) hr = INT_MAX;           // no sink in this thread
@@ -263,88 +386,152 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
             ej = L;
         }
 
-        if (tid == 0 && have) {
-            if (local) {
-                const int32_t* row = H + (size_t)ei * W;
-                int jl = 0;
-                while (row[jl] != tbest) ++jl;
-                ej = k.rlo[ei] + jl;
+        // ---- traceback by value re-derivation (warp 0: every lane
+        // follows the same path; lane 0 writes the match targets) ----
+        if (tid < 32 && have) {
+            if (local) {                      // first stored column = best
+                const int32_t* row = H + (size_t)ei * RS;
+                for (int q0 = 0; q0 < RS; q0 += 32) {
+                    const int jl = q0 + lane;
+                    const unsigned hit =
+                        __ballot_sync(FULL, jl < RS && row[jl] == tbest);
+                    if (hit) { ej = q0 + __ffs(hit) - 1; break; }
+                }
+                ej += banded ? k.rlo[ei] : 0;
             }
-            // ---- traceback by value re-derivation (thread 0) ----
             int i = ei, j = ej, chan = 0;     // 0 H, 1 Hq, 2 E1, 3 E2
-            int val = rd(H, W, k.rlo, i, j);
+            int val = rd(H, i, j);
+            bool stuck = false;
             while (true) {
                 if (chan <= 1) {
                     if (local && val == 0) break;
                     if (i == 0) {
                         if (j == 0) break;
-                        k.target[j - 1] = -1;     // leading insertion
+                        if (lane == 0) k.target[j - 1] = -1;  // leading insertion
                         --j;
-                        val = rd(H, W, k.rlo, 0, j);
+                        val = rd(H, 0, j);
                         chan = 0;
                         continue;
                     }
-                    const int v = k.rnode[i];
-                    const int np = k.rnp[i], npr = np > 0 ? np : 1;
-                    bool moved = false;
-                    if (j > 0) {
-                        int subv = (int)s_seq[j - 1] == k.base[v] ? m : -n;
-                        for (int p = 0; p < npr; ++p) {
-                            int pr = np > 0 ? k.rpreds[(size_t)i * pcap + p] : 0;
-                            if (rd(H, W, k.rlo, pr, j - 1) + subv == val) {
-                                k.target[j - 1] = v;
-                                i = pr; --j; chan = 0;
-                                val = rd(H, W, k.rlo, i, j);
-                                moved = true;
-                                break;
+                    if (!BANDED && j > 0) {
+                        // a run of M steps read ahead, one a lane: lane t
+                        // takes the step from (i - t, j - t) when that row's
+                        // only predecessor is the row above, so 32 steps
+                        // cost one round trip; the run ends at the first
+                        // step that is not such an M move
+                        const int r = i - lane, cl = j - lane;
+                        const bool ok = r >= 1 && cl >= 1 && k.rnp[r] <= 1
+                                     && pred_row(k, r, 0) == r - 1;
+                        if (__ballot_sync(FULL, ok) & 1) {
+                            int h = 0, sv = 0, vn = 0;
+                            if (ok) {
+                                vn = k.rnode[r];
+                                h = rd(H, r - 1, cl - 1);
+                                sv = (int)s_seq[cl - 1] == k.base[vn] ? m : -n;
+                            }
+                            // the value at step t: val less the steps before
+                            int vt = sv;
+                            for (int o = 1; o < 32; o <<= 1) {
+                                const int y = __shfl_up_sync(FULL, vt, o);
+                                if (lane >= o) vt += y;
+                            }
+                            vt = val - (vt - sv);
+                            const unsigned go = __ballot_sync(
+                                FULL, ok && !(local && vt == 0) && h + sv == vt);
+                            const int run = __ffs(~go) ? __ffs(~go) - 1 : 32;
+                            if (run > 0) {
+                                if (lane < run) k.target[cl - 1] = vn;
+                                val = __shfl_sync(FULL, vt - sv, run - 1);
+                                i -= run; j -= run; chan = 0;
+                                continue;
                             }
                         }
                     }
-                    if (moved) continue;
-                    if (rd(E1, W, k.rlo, i, j) == val) { chan = 2; continue; }
-                    if (rd(E2, W, k.rlo, i, j) == val) { chan = 3; continue; }
-                    if (chan == 0) {
-                        int kf = -1;
-                        for (int kk = j - 1; kk >= 0; --kk) {
-                            int h = rd(Hq, W, k.rlo, i, kk);
-                            if (h - g - (j - 1 - kk) * e == val ||
-                                h - q - (j - 1 - kk) * c == val) { kf = kk; break; }
+                    const int v = k.rnode[i];
+                    const int np = k.rnp[i], npr = np > 0 ? np : 1;
+                    const int e1v = rd(E1, i, j), e2v = rd(E2, i, j);
+                    if (j > 0) {
+                        const int subv = (int)s_seq[j - 1] == k.base[v] ? m : -n;
+                        int hit = 0, pr = 0;
+                        if (lane < npr) {
+                            pr = pred_row(k, i, lane);
+                            hit = rd(H, pr, j - 1) + subv == val;
                         }
-                        if (kf >= 0) {
-                            for (int t = kf; t < j; ++t) k.target[t] = -1;
-                            j = kf; chan = 1;
-                            val = rd(Hq, W, k.rlo, i, j);
+                        const unsigned hm = __ballot_sync(FULL, hit);
+                        if (hm) {                 // H there is val - subv
+                            if (lane == 0) k.target[j - 1] = v;
+                            i = __shfl_sync(FULL, pr, __ffs(hm) - 1);
+                            --j; chan = 0;
+                            val -= subv;
                             continue;
                         }
                     }
-                    s_ovf = 1;                    // stuck: cannot happen
+                    if (e1v == val) { chan = 2; continue; }
+                    if (e2v == val) { chan = 3; continue; }
+                    if (chan == 0) {
+                        // nearest origin kk < j, 32 columns a step
+                        int kf = -1, hf = 0;
+                        for (int k0 = j - 1; k0 >= 0 && kf < 0; k0 -= 32) {
+                            const int kk = k0 - lane;
+                            int hit = 0, h = 0;
+                            if (kk >= 0) {
+                                h = rd(Hq, i, kk);
+                                hit = h - g - (j - 1 - kk) * e == val ||
+                                      h - q - (j - 1 - kk) * c == val;
+                            }
+                            const unsigned hm = __ballot_sync(FULL, hit);
+                            if (hm) {
+                                kf = k0 - (__ffs(hm) - 1);
+                                hf = __shfl_sync(FULL, h, __ffs(hm) - 1);
+                            }
+                        }
+                        if (kf >= 0) {
+                            for (int t = kf + lane; t < j; t += 32)
+                                k.target[t] = -1;
+                            j = kf; chan = 1;
+                            val = hf;             // Hq at the origin
+                            continue;
+                        }
+                    }
+                    stuck = true;             // cannot happen
                     break;
                 }
                 const int op = chan == 2 ? g : q, ex = chan == 2 ? e : c;
                 const int32_t* Em = chan == 2 ? E1 : E2;
                 const int np = k.rnp[i], npr = np > 0 ? np : 1;
-                int nxt_i = -1, nxt_val = 0, nxt_chan = chan;
-                for (int p = 0; p < npr; ++p) {
-                    int pr = np > 0 ? k.rpreds[(size_t)i * pcap + p] : 0;
-                    int h = rd(H, W, k.rlo, pr, j);
-                    if (h - op == val) { nxt_i = pr; nxt_val = h; nxt_chan = 0; break; }
+                int hh = 0, he = 0, pr = 0, hv = 0, ev = 0;
+                if (lane < npr) {
+                    pr = pred_row(k, i, lane);
+                    hv = rd(H, pr, j);
+                    ev = rd(Em, pr, j);
+                    hh = hv - op == val;
+                    he = ev - ex == val;
                 }
-                if (nxt_i < 0) {
-                    for (int p = 0; p < npr; ++p) {
-                        int pr = np > 0 ? k.rpreds[(size_t)i * pcap + p] : 0;
-                        int x = rd(Em, W, k.rlo, pr, j);
-                        if (x - ex == val) { nxt_i = pr; nxt_val = x; break; }
-                    }
+                const unsigned mh = __ballot_sync(FULL, hh);
+                const unsigned me = __ballot_sync(FULL, he);
+                if (mh) {
+                    const int s = __ffs(mh) - 1;
+                    i = __shfl_sync(FULL, pr, s);
+                    val = __shfl_sync(FULL, hv, s);
+                    chan = 0;
+                } else if (me) {
+                    const int s = __ffs(me) - 1;
+                    i = __shfl_sync(FULL, pr, s);
+                    val = __shfl_sync(FULL, ev, s);
+                } else {
+                    stuck = true;             // broken E chain
+                    break;
                 }
-                if (nxt_i < 0) { s_ovf = 1; break; }   // broken E chain
-                i = nxt_i; val = nxt_val; chan = nxt_chan;
             }
+            __syncwarp();
+            if (stuck && lane == 0) s_ovf = 1;
         }
 
         // ---- threading: guarded aligned-ring reuse or a new node ----
-        // Same thread as the traceback and no barrier in between: s_ovf is
-        // only ever read by the other threads after the end-of-round
-        // barrier, never in an interval where thread 0 may write it.
+        // Same thread as the traceback's lane 0 and no barrier in between:
+        // s_ovf is only ever read by the other threads after the
+        // end-of-round barrier, never in an interval where thread 0 may
+        // write it.
         if (tid == 0 && !s_ovf) {
             int Vc = s_Vc, head = s_head, gs = s_gs;
             const int o = thread_seq(k, s_seq, L, VW, Vc, head, gs,
@@ -356,6 +543,7 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
     }
 
     // ---- export ----
+    int32_t* bexp = exp_ + (size_t)b * 3 * VW;
     if (s_ovf) {
         export_overflow_par(bpaths, (size_t)RW * LW, bexp, VW, tid, NT);
         if (tid == 0) {
@@ -372,26 +560,79 @@ poa_win_kernel(const int8_t* __restrict__ seqs, const int32_t* __restrict__ slen
     }
 }
 
+inline cudaError_t win_geometry(int B, int VW, int pcap, int LS, int banded,
+                                Geometry& g) {
+    return one_block_geometry(B, table_bytes((size_t)VW + 1, pcap, LS,
+                                             banded),
+                              LS, STATIC_SMEM, g);
+}
+
+template <bool T, bool BD>
+cudaError_t launch_win(const Geometry& geo, const void* seqs,
+                       const void* slen, const void* nseq, const void* params,
+                       void* meta, void* exp_, void* paths, void* scratch,
+                       int RW, int LW, int VW, int W, int pcap, int LS,
+                       int local, cudaStream_t stream) {
+    if (geo.smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            poa_win_kernel<T, BD>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
+        if (err != cudaSuccess) return err;
+    }
+    poa_win_kernel<T, BD><<<geo.grid, NT, geo.smem, stream>>>(
+        (const int8_t*)seqs, (const int32_t*)slen, (const int32_t*)nseq,
+        (const int32_t*)params, (int32_t*)meta, (int32_t*)exp_,
+        (int32_t*)paths, (int8_t*)scratch, RW, LW, VW, W, pcap, LS, local);
+    return cudaGetLastError();
+}
+
+// int16 tables: node ids up to VW_MAX and (banded) band columns below 2^15
+inline bool bad_shape(int LW, int VW, int W, int pcap, int LS, int banded) {
+    return pcap < 1 || pcap > PCAP_MAX || VW < 1 || VW > VW_MAX || W < 1 ||
+           LS < 32 || LS % 32 != 0 || (banded && LW > 32768);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream` (PyTorch's current stream).  Returns cudaGetLastError()
-// after the launch: nonzero means the launch was refused or an earlier
-// asynchronous fault is pending, and the caller raises.
+// The launch geometry of `B` POA blocks at these capacities and row
+// stride on the current device: out = (POA blocks per thread block (1),
+// grid, dynamic shared bytes, tables in shared memory).  Returns a CUDA
+// error.
+int poa_win_geometry(int B, int VW, int pcap, int LS, int banded,
+                     int* out) {
+    if (B <= 0 || bad_shape(2, VW, 1, pcap, LS, 0))
+        return (int)cudaErrorInvalidValue;
+    Geometry g;
+    const cudaError_t err = win_geometry(B, VW, pcap, LS, banded, g);
+    if (err == cudaSuccess) geometry_out(g, out);
+    return (int)err;
+}
+
+// Launch on `stream` (PyTorch's current stream) in the geometry above,
+// with full-width DP rows of LS columns (a multiple of 32 above every
+// sequence length that fits LW, ops/poa_win.py:row_stride), banded rows of
+// W (rounded up to 8), and `scratch` holding B blocks of block_bytes.
+// Returns cudaGetLastError() after the launch: nonzero means the launch
+// was refused or an earlier asynchronous fault is pending, and the caller
+// raises.
 int poa_win_launch(const void* seqs, const void* slen, const void* nseq,
                    const void* params, void* meta, void* exp_, void* paths,
                    void* scratch, int B, int RW, int LW, int VW, int W,
-                   int pcap, int local, int banded, void* stream) {
+                   int pcap, int LS, int local, int banded, void* stream) {
     if (B <= 0) return 0;
-    if (pcap < 1 || pcap > 8) return (int)cudaErrorInvalidValue;
-    size_t smem = ((size_t)LW + 15) & ~(size_t)15;
-    poa_win_kernel<<<B, NT, smem, (cudaStream_t)stream>>>(
-        (const int8_t*)seqs, (const int32_t*)slen, (const int32_t*)nseq,
-        (const int32_t*)params, (int32_t*)meta, (int32_t*)exp_,
-        (int32_t*)paths, (int32_t*)scratch, RW, LW, VW, W, pcap, local,
-        banded);
-    return (int)cudaGetLastError();
+    if (bad_shape(LW, VW, W, pcap, LS, banded))
+        return (int)cudaErrorInvalidValue;
+    Geometry geo;
+    const cudaError_t err = win_geometry(B, VW, pcap, LS, banded, geo);
+    if (err != cudaSuccess) return (int)err;
+    auto fn = geo.tables ? (banded ? launch_win<true, true>
+                                   : launch_win<true, false>)
+                         : (banded ? launch_win<false, true>
+                                   : launch_win<false, false>);
+    return (int)fn(geo, seqs, slen, nseq, params, meta, exp_, paths, scratch,
+                   RW, LW, VW, W, pcap, LS, local, (cudaStream_t)stream);
 }
 
 const char* poa_win_error_string(int err) {

@@ -153,13 +153,14 @@ def load() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.poa_win_launch.argtypes = [vp] * 8 + [ci] * 8 + [vp]
-            lib.poa_win_launch.restype = ci
             lib.poa_round_launch.argtypes = [vp] * 10 + [ci] * 5 + [vp]
             lib.poa_round_launch.restype = ci
-            # (..., pcap, stage, LS, local, banded, stream) and the
-            # geometry (B, VW, pcap, LS, banded, int[4])
-            for name in ("poa_code", "poa_stacked"):
+            lib.poa_round_geometry.argtypes = [ci] * 3 + [vp]
+            lib.poa_round_geometry.restype = ci
+            # (..., B, RW, LW, VW, then W, pcap, LS (poa_win) or pcap,
+            # stage, LS, then local, banded, stream) and the geometry (B,
+            # VW, pcap, LS, banded, int[4])
+            for name in ("poa_win", "poa_code", "poa_stacked"):
                 getattr(lib, f"{name}_launch").argtypes = \
                     [vp] * 8 + [ci] * 9 + [vp]
                 getattr(lib, f"{name}_launch").restype = ci

@@ -42,22 +42,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .poa_win import (NEG, _check_inputs, _Overflow, _RefBlock, launch,
-                      row_stride, to_win_layout)
+from .poa_win import (NEG, VW_MAX, _check_inputs, _Overflow, _RefBlock,
+                      check_nodes, launch, row_stride, table_bytes,
+                      to_win_layout)
 
 PCAP = 8
 FOLD = 8
-VW_MAX = 32766     # node ids and rows are int16 in the kernels' tables
-
-
-def table_bytes(VW: int, pcap: int, LS: int, banded: bool) -> int:
-    """Bytes of one block's graph tables at row stride LS: int16 node,
-    row and target tables, int8 bases and counts, padded to 16
-    (csrc/poa_graph.cuh:table_bytes)."""
-    v1 = VW + 1
-    w16 = (4 + 2 * pcap + (4 if banded else 0)) * v1 + 3 * LS
-    return (2 * w16 + 5 * v1 + 15) & ~15
-
 
 
 @dataclass(frozen=True)
@@ -112,12 +102,6 @@ STAGES = range(8)
 def check_stage(stage: int, stages) -> None:
     if stage not in stages:
         raise ValueError(f"stage {stage} is not one of {list(stages)}")
-
-
-def check_nodes(caps) -> None:
-    if caps.VW > VW_MAX:
-        raise ValueError(f"the code-chase kernels hold node ids in int16: "
-                         f"VW {caps.VW} > {VW_MAX}")
 
 
 def poa_code(seqs: torch.Tensor, slen: torch.Tensor, nseq: torch.Tensor,

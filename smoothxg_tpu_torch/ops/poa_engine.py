@@ -12,14 +12,14 @@ ported yet (it needs rates measured on the card).
 
 Tiers are (VW, LW, W): node capacity, sequence capacity, stored DP window.
 On the H100 the DP planes live in device memory at 16 bytes per cell
-(H, Hq, E1, E2 as int32), so a tier costs ~16 * VW * W bytes of scratch per
-block and the batch per launch is what SCRATCH_BUDGET holds (capped at
-MAX_BATCH, the blocks a 132-SM card holds at once).  The code-chase
-kernels' planes are VW x LS instead, LS the launch's row stride
-(ops/poa_win.row_stride), so their batch is sized from the longest
-sequence of the blocks routed to the tier.  The tiers cover what the TPU
-tiers took — full width to LW 4096, banded long blocks to LW 10240, VW to
-8704 — without K-stacking (sizes per block for poa_win):
+(H, Hq, E1, E2 as int32 for poa_win), ~16 * VW * LS bytes of scratch per
+block, LS the launch's row stride (ops/poa_win.row_stride; a windowed tier
+stores W columns), so a tier's batch per launch is what SCRATCH_BUDGET
+holds at the longest sequence of the blocks routed to it (capped at
+MAX_BATCH, the blocks a 132-SM card holds at once).  The tiers cover what
+the TPU tiers took — full width to LW 4096, banded long blocks to LW
+10240, VW to 8704 — without K-stacking (sizes per block for poa_win at
+LS = LW):
   (4352, 2048, 2048)   the bulk of -l 700..1100 blocks, 143 MB/block
   (8704, 2048, 2048)   high-growth blocks of the same lengths, 285 MB
   (6144, 3072, 3072)   mid-length full-width blocks, 302 MB
@@ -148,7 +148,7 @@ class TorchPOAEngine:
     def _kernel(self, VW: int, LW: int, W: int, local: bool, banded: bool):
         """The selected kernel's wrapper, its caps for a tier and variant,
         and its int32 scratch words per block as a function of the
-        launch's row stride (which poa_win's do not depend on)."""
+        launch's row stride."""
         if self.kernel == "code":
             caps = CodeCaps(VW, LW, local, banded)
             return poa_code, caps, caps.scratch_words
@@ -156,7 +156,7 @@ class TorchPOAEngine:
             caps = stacked_caps(VW, LW, local, banded)
             return poa_stacked, caps, lambda LS: scratch_words(caps, LS)
         caps = WinCaps(VW, LW, W, local, banded)
-        return poa_win, caps, lambda LS: caps.scratch_words()
+        return poa_win, caps, caps.scratch_words
 
     def _tier_batch(self, ti: int, banded: bool, maxlen: int) -> int:
         """Blocks per launch of tier `ti` for blocks of at most `maxlen`

@@ -141,7 +141,7 @@ def poa_round(nv: torch.Tensor, slen: torch.Tensor, par: torch.Tensor,
     meta = torch.empty((B, 4), dtype=torch.int32, device=dev)
     if B == 0:
         return codes, meta
-    scratch = torch.empty(B * 4 * (VW + 1) * (LS + 1), dtype=torch.int32,
+    scratch = torch.empty(B * scratch_words(VW, LS), dtype=torch.int32,
                           device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -159,6 +159,33 @@ def poa_round(nv: torch.Tensor, slen: torch.Tensor, par: torch.Tensor,
 
 
 poa_round.launches = 0     # kernel launches made by this wrapper
+
+
+def scratch_words(VW: int, LS: int) -> int:
+    """int32 words of one task's device scratch: the planes H, Hq, E1, E2 at
+    (VW + 1) rows of LS + 1 columns rounded up to 4 (one int4 a thread),
+    then a predecessor count per row (csrc/poa_round.cu:task_words)."""
+    return 4 * (VW + 1) * ((LS + 4) & ~3) + ((VW + 3) & ~3)
+
+
+def geometry(VW: int, LS: int, P: int) -> dict:
+    """The launch geometry lib.poa_round_geometry gives tasks of these
+    sizes on the current CUDA device: threads a block, whether rows are
+    one tile with the ring of recent rows in shared memory, whether the
+    sequence and the row tables sit in shared memory, dynamic shared bytes
+    and blocks an SM."""
+    import ctypes
+    from . import _build
+    lib = _build.load()
+    out = (ctypes.c_int * 6)()
+    rc = lib.poa_round_geometry(VW, LS, P, out)
+    if rc != 0:
+        raise RuntimeError(f"poa_round geometry: CUDA error {rc} "
+                           f"({lib.poa_win_error_string(rc).decode()})")
+    return {"threads": out[0], "ring": bool(out[1]),
+            "seq": "shared" if out[2] else "device",
+            "tables": "shared" if out[3] else "device", "smem": out[4],
+            "per_sm": out[5], "LS": LS}
 
 
 # ---------------------------------------------------------------------------
@@ -404,7 +431,10 @@ class TorchRoundPOAEngine:
     the kernel, like _pallas_fn, has no band) in fallback_reasons["band"],
     and tasks the kernel flags (stuck traceback, iteration limit) in
     stuck_fallbacks.  Launches are asynchronous: `finish` copies back and decodes.  A launch holds at
-    most `max_batch` tasks (132, one per SM) and what SCRATCH_BUDGET
+    most `max_batch` tasks (132: one wave on a 132-SM card, where the
+    kernel's ring of recent rows leaves room for 1-3 tasks an SM at the
+    main path's rows of ~1 kb, and more than a round of the main path
+    holds, at most 128) and what SCRATCH_BUDGET
     bytes of DP planes hold at 16 B per cell, its tasks padded to the
     launch's largest V and L (tasks are sorted by size first)."""
 

@@ -24,8 +24,12 @@ C++ twin):
 Storage: each DP row stores W columns from a per-row offset.  Unbanded rows
 use offset 0 and need W >= L + 1; banded rows (abPOA adaptive band) start
 their window at the band floor, which is exact because every cell outside
-the band is the floor.  Capacities are arguments (`WinCaps`) and are the
-same for the kernel and the plain version.  A block overflows — meta[1] = 1,
+the band is the floor.  (The kernel stores an unbanded row at the launch's
+row stride LS, `row_stride`: the batch's longest sequence + 1, rounded up
+to 32, so its scratch follows the batch; its graph tables hold node ids in
+int16, so VW is at most `VW_MAX` there.)  Capacities are arguments
+(`WinCaps`) and are the same for the kernel and the plain version.  A
+block overflows — meta[1] = 1,
 and the caller redoes it on the native engine — when:
   * a sequence does not fit (L0 > VW, L > LW - 1, or L + 1 > W unbanded);
   * threading would create node VW + 1;
@@ -57,6 +61,22 @@ import torch
 NEG = -(1 << 30)
 RING_CAP = 8
 PCAP = 4
+VW_MAX = 32766     # node ids and rows are int16 in the kernels' tables
+
+
+def table_bytes(VW: int, pcap: int, LS: int, banded: bool) -> int:
+    """Bytes of one block's graph tables at row stride LS: int16 node,
+    row and target tables, int8 bases and counts, padded to 16
+    (csrc/poa_graph.cuh:table_bytes)."""
+    v1 = VW + 1
+    w16 = (4 + 2 * pcap + (4 if banded else 0)) * v1 + 3 * LS
+    return (2 * w16 + 5 * v1 + 15) & ~15
+
+
+def check_nodes(caps) -> None:
+    if caps.VW > VW_MAX:
+        raise ValueError(f"the whole-block kernels hold node ids in int16: "
+                         f"VW {caps.VW} > {VW_MAX}")
 
 
 @dataclass(frozen=True)
@@ -70,12 +90,14 @@ class WinCaps:
     banded: bool
     pcap: int = PCAP     # predecessor slots per node
 
-    def scratch_words(self) -> int:
-        """int32 words of per-block scratch the kernel needs: node and row
-        tables, target/splice lists and the four DP planes H, Hq, E1, E2
-        (the layout is spelled out in csrc/poa_win.cu)."""
-        v1 = self.VW + 1
-        return (12 + 2 * self.pcap) * v1 + 3 * self.LW + 4 * v1 * self.W
+    def scratch_words(self, LS: int) -> int:
+        """int32 words of per-block scratch at row stride LS: the graph
+        tables, then the four DP planes H, Hq, E1, E2 at 16 B a cell, rows
+        of LS columns at full width, else of the window W rounded up to 8
+        (csrc/poa_win.cu:block_bytes)."""
+        cols = (self.W + 7) & ~7 if self.banded else LS
+        return (table_bytes(self.VW, self.pcap, LS, self.banded)
+                + 16 * (self.VW + 1) * cols) // 4
 
 
 def pack_blocks(blocks, LW: int):
@@ -128,8 +150,10 @@ def poa_win(seqs: torch.Tensor, slen: torch.Tensor, nseq: torch.Tensor,
     _check_inputs(seqs, slen, nseq, params, caps)
     if seqs.device.type == "cpu":
         return poa_win_reference(seqs, slen, nseq, params, caps)
+    check_nodes(caps)
+    LS = row_stride(slen, caps.LW)
     out = launch("poa_win", seqs, slen, nseq, params, caps,
-                 caps.scratch_words(), caps.W, caps.pcap)
+                 caps.scratch_words(LS), caps.W, caps.pcap, LS)
     poa_win.launches += 1
     return out
 
@@ -138,9 +162,9 @@ poa_win.launches = 0     # kernel launches made by this wrapper
 
 
 def stride_for(maxl: int, LW: int) -> int:
-    """Row stride of the code-chase kernels' DP planes for a launch whose
-    longest sequence is `maxl`: maxl (capped at LW - 1, the longest that
-    fits) + 1, rounded up to 32 columns."""
+    """Row stride of the whole-block kernels' full-width DP planes for a
+    launch whose longest sequence is `maxl`: maxl (capped at LW - 1, the
+    longest that fits) + 1, rounded up to 32 columns."""
     return -(-(min(max(maxl, 0), LW - 1) + 1) // 32) * 32
 
 
@@ -151,7 +175,7 @@ def row_stride(slen: torch.Tensor, LW: int) -> int:
 
 
 def geometry(name: str, B: int, caps, LS: int) -> dict:
-    """The launch geometry lib.<name>_geometry gives a code-chase kernel's
+    """The launch geometry lib.<name>_geometry gives a whole-block kernel's
     launch of B blocks at `caps` and row stride LS on the current CUDA
     device: POA blocks per thread block, grid, dynamic shared bytes, and
     where the graph tables sit ("shared" or "device")."""
@@ -172,8 +196,8 @@ def launch(name: str, seqs, slen, nseq, params, caps, words: int, *extra):
     """Allocate the outputs and `words` int32 of scratch per block, launch
     lib.<name>_launch(inputs, outputs, scratch, B, RW, LW, VW, *extra,
     local, banded, stream) on the current stream and raise on a launch
-    error (the whole-block kernels' shared C interface; the code-chase
-    kernels' extras end with their row stride, `row_stride`)."""
+    error (the whole-block kernels' shared C interface; the extras end with
+    the launch's row stride, `row_stride`)."""
     dev = seqs.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")

@@ -1,5 +1,5 @@
-// cuda_emu.h — just enough of the CUDA runtime to run the port's
-// whole-block POA kernels and its probes on the CPU, for testing their
+// cuda_emu.h — just enough of the CUDA runtime to run the port's POA
+// kernels and its probes on the CPU, for testing their
 // logic where there is no GPU (smoothxg_tpu_torch/testing/cuda_emu.py
 // compiles a kernel source against it with g++ -std=c++20).
 //
@@ -66,6 +66,16 @@ inline int cudaFuncSetAttribute(F, int attr, int value) {
         if (value > emu::smem_block) return cudaErrorInvalidValue;
         emu::opt_in = value;
     }
+    return cudaSuccess;
+}
+// blocks of `block` threads and `smem` dynamic bytes an SM holds, by its
+// threads and shared memory (the card also counts registers)
+template <typename F>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int block,
+                                                         size_t smem) {
+    const int by_smem = (int)(emu::smem_sm / (smem + 1024));
+    const int by_threads = 2048 / block;
+    *n = by_smem < by_threads ? by_smem : by_threads;
     return cudaSuccess;
 }
 inline int cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }

@@ -1,6 +1,6 @@
 """Run a kernel source of the port (csrc/poa_win.cu, poa_code.cu,
-poa_stacked.cu, probes.cu) on the CPU, for testing its logic where there is
-no GPU and no nvcc.
+poa_stacked.cu, poa_round.cu, probes.cu) on the CPU, for testing its logic
+where there is no GPU and no nvcc.
 
 `build(name, workdir)` rewrites csrc/<name>.cu for the CUDA emulation in
 testing/cuda_emu.h (dynamic shared memory becomes a host buffer, a
@@ -9,9 +9,13 @@ testing/cuda_emu.h (dynamic shared memory becomes a host buffer, a
 `run(exe, ...)` launches a whole-block kernel's C entry point
 `<name>_launch` on the port's (seqs, slen, nseq, params) CPU tensors at a
 profiling `stage` and returns (meta, exp, paths), which must equal the
-plain PyTorch version's; `run_geometry` also returns the launch geometry a
-code-chase kernel chose (`<name>_geometry`: POA blocks per thread block,
-grid, dynamic shared bytes, tables in shared or device memory).
+plain PyTorch version's; `run_geometry` also returns the launch geometry
+the kernel chose (`<name>_geometry`: POA blocks per thread block, grid,
+dynamic shared bytes, tables in shared or device memory).
+`run_round(exe, ...)` launches poa_round.cu's `poa_round_launch` on the
+round inputs and returns (codes, meta) and its geometry (threads a block,
+one-tile rows with the ring, sequence and row tables in shared memory,
+shared bytes, blocks an SM).
 `run_probe(exe, family, ...)` launches `probe_<family>_launch` of probes.cu
 and returns its 128 outputs.  A race between threads shows as a hang, so
 callers run it under a timeout.  The emulated device has an H100's SM
@@ -104,6 +108,48 @@ int main(int argc, char** argv) {
 """
 PROBE_FAMILIES = ("scalar", "row", "tile", "step")
 
+# poa_round.cu's entry: header (B, VW, LS, P, local, sms, smem_block,
+# smem_sm), then the seven inputs; writes codes, meta and the geometry
+_ROUND_MAIN = r"""
+#include <cstdio>
+#include <cstdlib>
+int main(int argc, char** argv) {
+    FILE* f = std::fopen(argv[1], "rb");
+    int hd[8];
+    if (std::fread(hd, 4, 8, f) != 8) return 2;
+    const int B = hd[0], VW = hd[1], LS = hd[2], P = hd[3], local = hd[4];
+    emu::sms = hd[5]; emu::smem_block = hd[6]; emu::smem_sm = hd[7];
+    std::vector<int32_t> nv(B), slen(B), par((size_t)B * 6),
+        preds((size_t)B * VW * P);
+    std::vector<uint8_t> base((size_t)B * VW), sink((size_t)B * VW),
+        seq((size_t)B * LS);
+    if (std::fread(nv.data(), 4, B, f) != (size_t)B ||
+        std::fread(slen.data(), 4, B, f) != (size_t)B ||
+        std::fread(par.data(), 4, par.size(), f) != par.size() ||
+        std::fread(base.data(), 1, base.size(), f) != base.size() ||
+        std::fread(sink.data(), 1, sink.size(), f) != sink.size() ||
+        std::fread(preds.data(), 4, preds.size(), f) != preds.size() ||
+        std::fread(seq.data(), 1, seq.size(), f) != seq.size()) return 2;
+    std::fclose(f);
+    std::vector<int64_t> codes((size_t)B * (VW + LS + 1), 0);
+    std::vector<int32_t> meta((size_t)B * 4, 7),
+        scratch((size_t)B * task_words(VW, LS), 0x5a5a5a5a);
+    const int rc = poa_round_launch(
+        nv.data(), slen.data(), par.data(), base.data(), sink.data(),
+        preds.data(), seq.data(), codes.data(), meta.data(), scratch.data(),
+        B, VW, LS, P, local, nullptr);
+    int geo[6] = {0, 0, 0, 0, 0, 0};
+    poa_round_geometry(VW, LS, P, geo);
+    f = std::fopen(argv[2], "wb");
+    std::fwrite(codes.data(), 8, codes.size(), f);
+    std::fwrite(meta.data(), 4, meta.size(), f);
+    std::fwrite(geo, 4, 6, f);
+    std::fclose(f);
+    return rc;
+}
+"""
+ROUND_GEOMETRY = ("threads", "ring", "seq_smem", "tables", "smem", "per_sm")
+
 
 def _rewrite(src: str) -> str:
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
@@ -122,15 +168,14 @@ def build(name: str, workdir: str) -> str:
         src = _rewrite(f.read())
     if name == "probes":
         main = _PROBE_MAIN
+    elif name == "poa_round":
+        main = _ROUND_MAIN
     else:
         # poa_win_launch takes the stored window width before pcap; the
-        # code-chase kernels take a profiling stage and the row stride
-        # after it, and report their geometry
-        if name == "poa_win":
-            extra, geo = "W, pcap,", ""
-        else:
-            extra = "pcap, stage, LS,"
-            geo = f"if (B > 0) {name}_geometry(B, VW, pcap, LS, banded, geo);"
+        # code-chase kernels take a profiling stage after it; all take the
+        # row stride and report their geometry
+        extra = "W, pcap, LS," if name == "poa_win" else "pcap, stage, LS,"
+        geo = f"if (B > 0) {name}_geometry(B, VW, pcap, LS, banded, geo);"
         main = (f"\n#define LAUNCH {name}_launch\n#define EXTRA {extra}\n"
                 f"#define GEOMETRY {geo}\n" + _MAIN)
     cpp = os.path.join(workdir, f"{name}_emu.cpp")
@@ -164,9 +209,8 @@ def run_geometry(exe: str, seqs, slen, nseq, params, caps, words: int,
                  sms: int = SMS, smem_block: int = SMEM_BLOCK,
                  smem_sm: int = SMEM_SM):
     """Launch the emulated kernel on CPU tensors with `words` int32 of
-    scratch per block (row stride LS for the code-chase kernels); returns
-    ((meta, exp, paths) as int32 tensors, the launch geometry as a dict;
-    zeros for poa_win)."""
+    scratch per block at row stride LS; returns ((meta, exp, paths) as
+    int32 tensors, the launch geometry as a dict)."""
     B, RW, LW = seqs.shape
     raw = _launch(exe, [B, RW, LW, caps.VW, caps.pcap, int(caps.local),
                         int(caps.banded), words, caps.W, stage, LS, sms,
@@ -187,6 +231,35 @@ def run(exe: str, seqs, slen, nseq, params, caps, words: int,
     """run_geometry without the geometry."""
     return run_geometry(exe, seqs, slen, nseq, params, caps, words, stage,
                         timeout, LS, **device)[0]
+
+
+def run_round(exe: str, nv, slen, par, base, sink, preds, seq,
+              local: bool, timeout: float = 120.0, sms: int = SMS,
+              smem_block: int = SMEM_BLOCK, smem_sm: int = SMEM_SM):
+    """Launch the emulated poa_round_launch on the port's round inputs (CPU
+    tensors, ops/poa_round.py's layout); returns ((codes, meta), the
+    launch geometry as a dict)."""
+    B, VW = base.shape
+    LS, P = seq.shape[1], preds.shape[2]
+    d = os.path.dirname(exe)
+    inp, out = os.path.join(d, "in.bin"), os.path.join(d, "out.bin")
+    with open(inp, "wb") as f:
+        f.write(np.array([B, VW, LS, P, int(local), sms, smem_block,
+                          smem_sm], np.int32).tobytes())
+        for t in (nv, slen, par, base, sink, preds, seq):
+            f.write(t.contiguous().numpy().tobytes())
+    res = subprocess.run([exe, inp, out], capture_output=True, text=True,
+                         timeout=timeout)
+    if res.returncode != 0:
+        raise RuntimeError(f"emulated launch failed: rc {res.returncode} "
+                           f"{res.stderr[-400:]}")
+    raw = open(out, "rb").read()
+    nc = B * (VW + LS + 1) * 8
+    codes = np.frombuffer(raw[:nc], np.int64).reshape(B, VW + LS + 1)
+    rest = np.frombuffer(raw[nc:], np.int32)
+    meta = rest[:B * 4].reshape(B, 4)
+    geo = dict(zip(ROUND_GEOMETRY, rest[B * 4:B * 4 + 6].tolist()))
+    return (torch.from_numpy(codes.copy()), torch.from_numpy(meta.copy())), geo
 
 
 def run_probe(exe: str, family: str, args: tuple, n: int, sz: int = 1,

@@ -1,13 +1,16 @@
-"""The code-chase kernel sources, csrc/poa_code.cu and poa_stacked.cu, on
-the CPU emulation of the CUDA runtime (testing/cuda_emu.h) against their
-plain PyTorch versions, exact equality of meta, exp and paths, in every
-launch geometry they choose: graph tables in shared memory (VW 256) and in
-device memory (VW 8704, where they do not fit the 227 KB a block may
-use), and for poa_stacked K = 1, 2 and 8 POA blocks a thread block (the
-emulated device's SM count set to 132, 2 and 1).  Rows are at the launch's
-row stride LS, below LW = 256 and with L + 1 ragged against 32 and a lane's
-span; local, global and banded; the last block of each launch overflows
-its predecessor slots (a 5th or 9th).  Inputs are seeded with numpy."""
+"""The whole-block kernel sources that choose a launch geometry,
+csrc/poa_code.cu, poa_stacked.cu and poa_win.cu, on the CPU emulation of
+the CUDA runtime (testing/cuda_emu.h) against their plain PyTorch
+versions, exact equality of meta, exp and paths, in every launch geometry
+they choose: graph tables in shared memory (VW 256) and in device memory
+(VW 8704, where they do not fit the 227 KB a block may use), and for
+poa_stacked K = 1, 2 and 8 POA blocks a thread block (the emulated
+device's SM count set to 132, 2 and 1).  Full-width rows are at the
+launch's row stride LS, below LW = 256 and with L + 1 ragged against 32
+and a lane's span (poa_win's banded rows keep their window of 192
+columns); local, global and banded; the last block of each launch
+overflows its predecessor slots (a 5th or 9th).  Inputs are seeded with
+numpy."""
 import numpy as np
 import pytest
 
@@ -22,7 +25,8 @@ from test_torch_kernel_emu import CHASE, KERNELS, assert_equal, run_emu
 @pytest.fixture(scope="module")
 def exes(tmp_path_factory):
     d = tmp_path_factory.mktemp("chase")
-    return {name: cuda_emu.build(name, str(d / name)) for name in CHASE}
+    return {name: cuda_emu.build(name, str(d / name))
+            for name in (*CHASE, "poa_win")}
 
 
 # (kernel, VW, emulated SMs, blocks, expected per_block, tables)
@@ -34,6 +38,8 @@ GEOMETRIES = [
     ("poa_stacked", 8704, 1, 8, 8, "device"),
     ("poa_code", 256, 132, 3, 1, "shared"),
     ("poa_code", 8704, 132, 3, 1, "device"),
+    ("poa_win", 256, 132, 3, 1, "shared"),
+    ("poa_win", 8704, 132, 3, 1, "device"),
 ]
 
 

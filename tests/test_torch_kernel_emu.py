@@ -29,7 +29,7 @@ KERNELS = {
     "poa_win": (poa_win_reference,
                 lambda VW, LW, local, banded: WinCaps(
                     VW, LW, 3 * LW // 4 if banded else LW, local, banded),
-                lambda c, LS: c.scratch_words(), 4, 5),
+                lambda c, LS: c.scratch_words(LS), 4, 5),
     "poa_code": (poa_code_reference, CodeCaps,
                  lambda c, LS: c.scratch_words(LS), 8, 9),
     "poa_stacked": (poa_stacked_reference, stacked_caps, scratch_words,
@@ -46,9 +46,9 @@ def exes(tmp_path_factory):
 
 def run_emu(exes, name, ins, caps, **device):
     """The emulated kernel's (outputs, geometry) and the plain version's
-    outputs on the same inputs; poa_win takes no row stride."""
+    outputs on the same inputs, at the launch's row stride."""
     ref, _, words, _, _ = KERNELS[name]
-    LS = row_stride(ins[1], caps.LW) if name in CHASE else 0
+    LS = row_stride(ins[1], caps.LW)
     got, geo = cuda_emu.run_geometry(exes[name], *ins, caps, words(caps, LS),
                                      LS=LS, **device)
     return got, geo, ref(*ins, caps)
