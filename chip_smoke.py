@@ -7,7 +7,7 @@ Phases, one line each or more; any failure exits nonzero and prints no
 result:
   1. device: CUDA required; the card's name, power limit and SM clock.
   2. build:  csrc/*.cu (poa_win, poa_round, poa_code, poa_stacked,
-     probes) compiled from the checkout, one nvcc process per source
+     probes, sgd, minhash, ident) compiled from the checkout, one nvcc process per source
      started together and one link (each kernel's ptxas registers: every
      instantiation of poa_win and poa_round with its stack and spills, the
      stage-0 instantiations of poa_code and poa_stacked, every stage, the
@@ -64,9 +64,29 @@ result:
      timing block and on a launch of 132 copies; stage 0 equal to phases 8
      / 10's outputs, stages 1 and 2 equal to their plain versions; the
      fill / traceback / threading split (tools/profile_fused.py).
-Every main path (4, 7, 9, 11, and the probes' phase 12) runs with all
-eight wrappers' launch counts set to 0 just before it and read just
-after: its own kernels must have launched and no other.  Then the
+ 14. sgd at full size: the seeded 64 x 5 Mb generator graph (6.29M path
+     steps) prepped by pipeline/prep.py:prep with the default "auto" SGD
+     route, which takes csrc/sgd.cu (100 launches); the kernel bit-identical
+     to its plain version on one iteration's draws; 100 iterations timed
+     by CUDA events and run again through the route: the same x bytes;
+     rank-jump of the card's order <= 1.2 x the native backend's on the
+     16 x 1 Mb graph in a shuffled node order (native takes minutes on the
+     64 x 5 Mb graph: tools/time_sgd.py measures it there).
+ 15. split kernels: minhash_hash + minhash_inter (csrc/minhash.cu) on 200
+     seeded blocks (the sentinel 16-mer in every fifth) and ident
+     (csrc/ident.cu) on 240 seeded pairs (off-band, lb = 0, bailed) equal
+     to their plain versions and the numpy mirrors, and on two pairs past
+     46,340 bp equal to the mirror; each timed on a 512-sequence block
+     (the torch.sort share of the MinHash launch) or 2,048 pairs.
+ 16. main paths: (a) the CLI's default engine with -U 200 on phase 4's
+     input (one POA iteration, -l 700), twice: the same GFA and MAF bytes, exactly sgd and poa_win
+     launched; (b) the CLI with --engine native and both split device
+     routes on the divergent fixture (io/synth.make_divergent_gfa over the
+     generator's 8 x 20 kb pangenome): blocks split, exactly the split
+     kernels launched, and the bytes of run_smoothing(cfg, device="cpu").
+Every main path (4, 7, 9, 11, the probes' phase 12, 14's prep and 16)
+runs with all twelve wrappers' launch counts set to 0 just before it and
+read just after: its own kernels must have launched and no other.  Then the
 kernels' JSON line, the nvidia-smi line and the result line.  No module
 of jax or of the JAX package may be loaded in this process.
 """
@@ -186,18 +206,26 @@ def win_dp_work(seqs, paths) -> tuple:
 
 
 PROBES = ("probe_scalar", "probe_row", "probe_tile", "probe_step")
-KERNELS = ("poa_win", "poa_round", "poa_code", "poa_stacked") + PROBES
+SPLIT = ("minhash_hash", "minhash_inter", "ident")
+KERNELS = (("poa_win", "poa_round", "poa_code", "poa_stacked") + PROBES
+           + ("sgd",) + SPLIT)
 
 
 def wrappers() -> dict:
     """Each kernel's wrapper, which counts its launches, by name."""
+    from smoothxg_tpu_torch.ops.ident_cuda import ident_counts
+    from smoothxg_tpu_torch.ops.minhash_cuda import (minhash_hash,
+                                                     minhash_inter)
     from smoothxg_tpu_torch.ops.poa_code import poa_code
     from smoothxg_tpu_torch.ops.poa_round import poa_round
     from smoothxg_tpu_torch.ops.poa_stacked import poa_stacked
     from smoothxg_tpu_torch.ops.poa_win import poa_win
+    from smoothxg_tpu_torch.ops.sgd import sgd_iter
     from smoothxg_tpu_torch.tools._probe import WRAPPERS
     return {"poa_win": poa_win, "poa_round": poa_round,
-            "poa_code": poa_code, "poa_stacked": poa_stacked, **WRAPPERS}
+            "poa_code": poa_code, "poa_stacked": poa_stacked, **WRAPPERS,
+            "sgd": sgd_iter, "minhash_hash": minhash_hash,
+            "minhash_inter": minhash_inter, "ident": ident_counts}
 
 
 def drive(run, own):
@@ -921,7 +949,8 @@ def build_summary(log: str) -> str:
     """Each POA kernel's registers, stack and spills (the code-chase
     kernels' stage-0 instantiations with the graph tables in device and in
     shared memory first, then every stage's count; every instantiation of
-    poa_win and poa_round), and each probe family's register range."""
+    poa_win and poa_round), each probe family's register range, and the
+    SGD and split-stage kernels' registers, stack and spills."""
     regs = ptxas_registers(log)
     inst = kernel_registers(log)
     parts = []
@@ -943,7 +972,447 @@ def build_summary(log: str) -> str:
         parts.append(f"{fam} kernels: {len(own)} instantiations, "
                      f"{min(own, default=-1)}-{max(own, default=-1)} "
                      f"registers")
+    for name in ("sgd_iter", "minhash_hash", "minhash_inter", "ident"):
+        mine = [r for e, r in regs.items() if f"{name}_kernel" in e]
+        parts.append(f"{name}_kernel " + (
+            f"{used(mine[0])} registers, {spilled(mine[0])}" if mine
+            else "ptxas: no report"))
     return "; ".join(parts)
+
+
+# phase 14: the SGD layout at full size; phase 16 (b): the divergent fixture
+SGD_GRAPH = {"haplotypes": 64, "length": 5_000_000, "seed": 1}
+SGD_QUALITY = {"haplotypes": 16, "length": 1_000_000, "seed": 1}
+DIVERGENT = {"haplotypes": 8, "length": 20_000, "seed": SEED}
+# phase 4's flags at one POA iteration (each iteration preps its input
+# again, so three would run the 100-iteration SGD three times), -U 200
+SGD_MAIN_FLAGS = [*MAIN_FLAGS[:MAIN_FLAGS.index("-l") + 1], "700",
+                  *MAIN_FLAGS[MAIN_FLAGS.index("-l") + 2:], "-U", "200"]
+SPLIT_FLAGS = ["-r", "16", "-j", "5k", "-e", "5k", "-l", "700", "-t", "1",
+               "--engine", "native", "-I", "0.95", "-E", "0.9", "-d", "2",
+               "-D", "2", "-L", "500", "--device-split-minhash",
+               "--device-split-wfa"]
+# The bounds count the work the function needs, not the kernels' own
+# choices.  int32 operations a DP cell of the banded identity's recurrence
+# as one sequential row needs them (smoothxg_tpu/ops/ident_jax.py:119-178):
+# the cross-row gap I (two adds, a compare, the value's and three counts'
+# selects, the opening's add: 8), the diagonal M (the match test with both
+# codes' validity, the substitution's select, the add and its INF guard,
+# the match and mismatch counts: 9), Hq = min(M, I) (a compare, four
+# selects: 5), the in-row gap D(j) = min(D(j-1) + e, Hq(j-1) + o + e) (8,
+# as I), H = min(Hq, D) (5) and the band's mask (a compare, two selects: 3)
+OPS_IDENT_CELL = 38
+# int32 operations a position of a rolling canonical k-mer and its hash:
+# the forward pack (shift, or, mask: 3), the reverse complement (xor, two
+# shifts, or: 4), the run of valid bases and the row's end (3), the
+# canonical minimum and the valid test (2), fmix32 (three shift-xors, two
+# multiplies: 8), the sentinel's select (1)
+OPS_HASH_POS = 21
+# int32 operations a hash of both rows in minhash_inter's merge (two
+# compares, the count's add, the index's advance)
+OPS_MERGE_HASH = 4
+
+
+def cuda_ms(torch, fn, reps: int = 3) -> float:
+    """Mean ms of fn() over `reps` calls after a warm one, by CUDA
+    events."""
+    fn()
+    torch.cuda.synchronize()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    for _ in range(reps):
+        fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / reps
+
+
+def sgd_phase(torch, dev, graph=SGD_GRAPH, quality=SGD_QUALITY):
+    """Phase 14: the 64 x 5 Mb generator graph prepped with the default
+    "auto" SGD route (the kernel, counted); the kernel against its plain
+    version on one iteration's draws; 100 iterations timed and then run
+    again through the route (the same bytes); rank-jump of the card's
+    order against the native backend's on 16 x 1 Mb in a shuffled node
+    order.  Returns sgd's JSON entry fields."""
+    import numpy as np
+    from smoothxg_tpu_torch.io.gfa import read_gfa
+    from smoothxg_tpu_torch.ops import sgd
+    from smoothxg_tpu_torch.pipeline.prep import prep
+    from smoothxg_tpu_torch.testing.synth import write_pangenome
+    from smoothxg_tpu_torch.tools.time_sgd import (chain_floor_ms, rank_jump,
+                                                   sgd_bound, shuffled,
+                                                   time_kernel)
+    t0 = time.perf_counter()
+    gfa = write_pangenome(os.path.join(SMOKE_DIR, "sgd.gfa"), **graph)
+    g = read_gfa(gfa)
+    os.remove(gfa)
+    prob = sgd.sgd_problem(g)
+    n = len(prob.x0)
+    say(f"sgd graph {graph}: {prob.T} path steps, {n} nodes, {prob.B} term "
+        f"updates an iteration ({prob.B_pad} in {prob.B_pad // 1024} "
+        f"minibatches on the card), {time.perf_counter() - t0:.1f} s to "
+        f"make and read")
+    if prob.B < sgd.SGD_DEVICE_MIN_TERMS:
+        fail(f"the sgd graph has {prob.B} term updates, below "
+             f"{sgd.SGD_DEVICE_MIN_TERMS}")
+    arr = prob.tensors(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    draws = sgd.sgd_draws(gen, prob.T, prob.B_pad, arr["cdf"],
+                          prob.zipf_space)
+    ins = (*draws, arr["node"], arr["pos"], arr["start"], arr["count"],
+           float(prob.etas(100)[0]))
+    x0 = torch.from_numpy(prob.x0.astype(np.float32)).to(dev)
+    xk = sgd.sgd_iter(x0.clone(), *ins)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xp = sgd.sgd_reference(x0.clone(), *ins)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((xk - xp).abs().max())
+    if not torch.equal(xk, xp):
+        fail(f"sgd kernel != plain version on one iteration (max abs err "
+             f"{err})")
+    say(f"sgd one iteration: kernel == plain version bit for bit on "
+        f"{prob.B_pad} draws (max abs err {err}, tolerance 0); plain "
+        f"version on the card {plain_ms:.1f} ms")
+    del xk, xp
+    t0 = time.perf_counter()
+    g2, launches = drive(lambda: prep(g, 100, device=dev), "sgd")
+    prep_s = time.perf_counter() - t0
+    if launches != 100:
+        fail(f"prep launched the sgd kernel {launches} times, not 100")
+    say(f"sgd main path: prep (default auto route) {prep_s:.2f} s wall, "
+        f"{g2.node_count()} nodes after chop, sgd launches {launches}")
+    del g2
+    t0 = time.perf_counter()
+    x1, iters = time_kernel(torch, prob, dev)
+    card_s = time.perf_counter() - t0
+    x2 = sgd.sgd_solve(prob, device=dev)
+    digest = [hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
+              for x in (x1, x2)]
+    if digest[0] != digest[1]:
+        fail(f"sgd: two full runs differ: {digest}")
+    bound, by = sgd_bound(prob)
+    ms = sum(iters) / len(iters)
+    say(f"sgd 100 iterations: {card_s:.3f} s wall (draws + kernels), "
+        f"kernel {sum(iters):.1f} ms ({ms:.3f} ms an iteration, "
+        f"{min(iters):.3f}-{max(iters):.3f}); bound {bound:.4f} ms an "
+        f"iteration by {by} (inputs once), chain floor "
+        f"{chain_floor_ms(prob):.1f} ms for 100 (one 0.5 us L2 round trip "
+        f"a minibatch); two full runs give the same x bytes ({digest[0]})")
+    del x1, x2, arr, draws, ins, x0
+    torch.cuda.empty_cache()
+    gq = write_pangenome(os.path.join(SMOKE_DIR, "sgd_quality.gfa"),
+                         **quality)
+    gq = shuffled(read_gfa(gq).compact())
+    t0 = time.perf_counter()
+    rn = rank_jump(gq, sgd.path_sgd_order(gq, device="native"))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc = rank_jump(gq, sgd.path_sgd_order(gq, device="cuda"))
+    card_q = time.perf_counter() - t0
+    say(f"sgd quality on {quality} in a shuffled order (input rank-jump "
+        f"{rank_jump(gq, list(gq.node_ids())):.1f}): card {rc:.3f} in "
+        f"{card_q:.2f} s, native {rn:.3f} in {native_s:.2f} s "
+        f"(bound: card <= 1.2 x native)")
+    if rc > 1.2 * rn:
+        fail(f"sgd: the card's rank-jump {rc:.3f} > 1.2 x native's {rn:.3f}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "launches": launches}
+
+
+def _seq(rng, n: int) -> str:
+    return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+
+
+def _mutate(rng, s: str, p: float) -> str:
+    """Substitutions, 1-3 bp insertions and deletions, each at rate p/3."""
+    out = []
+    for ch in s:
+        r = rng.random()
+        if r < p / 3:
+            continue
+        if r < 2 * p / 3:
+            out.append(_seq(rng, int(rng.integers(1, 4))))
+        elif r < p:
+            ch = "ACGT"[("ACGT".index(ch) + 1) % 4]
+        out.append(ch)
+    return "".join(out)
+
+
+def minhash_blocks(rng, n_blocks: int):
+    """Seeded MinHash blocks: mutated copies of a base sequence (0-20%),
+    unrelated and short sequences, non-ACGT bases, and in every fifth
+    block the 16-mer whose hash is the sentinel."""
+    from smoothxg_tpu_torch.ops.minhash_cuda import SENTINEL_KMER
+    for b in range(n_blocks):
+        base = _seq(rng, int(rng.integers(100, 2000)))
+        n = int(rng.integers(2, 24))
+        seqs = [_mutate(rng, base, float(rng.choice([0, 0.01, 0.05, 0.2])))
+                for _ in range(n)]
+        seqs += [_seq(rng, int(rng.integers(0, 600))), "ACG",
+                 base[:50] + "N" * 5 + base[50:]]
+        if b % 5 == 0:
+            seqs.append(base[:30] + SENTINEL_KMER + base[30:])
+        yield seqs
+
+
+def ident_pairs(rng, n: int):
+    """Seeded pairs for the banded identity: related at 0-30% divergence
+    with indels, off-band (a 300 bp insertion), unrelated, lb = 0, and a
+    per-pair max_score (len(a) as the pipeline passes, a tenth of it for
+    bailed pairs)."""
+    pairs, ms = [], []
+    for t in range(n):
+        a = _seq(rng, int(rng.integers(1, 1000)))
+        if t % 10 == 7:
+            cut = int(rng.integers(0, len(a)))
+            b = a[:cut] + _seq(rng, 300) + a[cut:]
+        elif t % 10 == 8:
+            b = _seq(rng, int(rng.integers(0, 1000)))
+        elif t % 10 == 9:
+            b = ""
+        else:
+            b = _mutate(rng, a, float(rng.choice([0, 0.02, 0.1, 0.3])))
+        pairs.append((a, b) if t % 2 else (b, a))
+        ms.append(max(len(a), len(b)) // (10 if t % 10 == 6 else 1))
+    return pairs, ms
+
+
+def split_phase(torch, dev, clock_mhz, n_blocks=200, n_pairs=240,
+                long_pairs=(46_400, 47_000), deep=512):
+    """Phase 15: minhash_hash + minhash_inter (csrc/minhash.cu) and ident
+    (csrc/ident.cu) against their plain versions on the card and the numpy
+    mirrors on seeded blocks and pairs, exact; then timed on a deep block.
+    Returns the three kernels' JSON entry fields."""
+    import numpy as np
+    from smoothxg_tpu_torch.ops import ident_cuda as ic
+    from smoothxg_tpu_torch.ops import minhash_cuda as mc
+    from smoothxg_tpu_torch.tools.time_sgd import HBM_BYTES_PER_S
+    rng = np.random.default_rng(SEED + 15)
+    t0 = time.perf_counter()
+    n_hash = n_pairs_mh = 0
+    for b, seqs in enumerate(minhash_blocks(rng, n_blocks)):
+        k = 16 if b % 4 else 11
+        codes, lens = (torch.from_numpy(a).to(dev)
+                       for a in mc.encode_batch(seqs))
+        h = mc.minhash_hash(codes, lens, k)
+        if not torch.equal(h, mc.minhash_hash_reference(codes, lens, k)):
+            fail(f"minhash_hash != plain version on block {b}")
+        hs, counts = mc.sorted_sets(h)
+        ii, jj = np.triu_indices(len(seqs), 1)
+        pa = torch.from_numpy(ii.astype(np.int32)).to(dev)
+        pb = torch.from_numpy(jj.astype(np.int32)).to(dev)
+        if not torch.equal(mc.minhash_inter(hs, counts, pa, pb),
+                           mc.minhash_inter_reference(hs, counts, pa, pb)):
+            fail(f"minhash_inter != plain version on block {b}")
+        d = mc.DeviceMinHash(k, device=dev).distance_matrix(seqs)
+        if not np.array_equal(d, mc.host_distance_matrix(seqs, k)):
+            fail(f"minhash distances != the numpy mirror on block {b}")
+        n_hash += int(codes.numel())
+        n_pairs_mh += len(ii)
+    say(f"minhash: {n_blocks} blocks ({n_hash} positions, {n_pairs_mh} "
+        f"pairs, k 16 and 11, the sentinel 16-mer in every fifth): "
+        f"minhash_hash and minhash_inter equal to their plain versions, "
+        f"distances equal to the numpy mirror (tolerance 0), "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pairs, ms = ident_pairs(rng, n_pairs)
+    packed = ic.pack_pairs([ic._prep_pair(a, b) for a, b in pairs])
+    ins = [packed[n].to(dev) for n in ("a", "aoff", "la", "b", "boff", "lb")]
+    got = ic.ident_counts(*ins)
+    if not torch.equal(got, ic.ident_counts_reference(*ins)):
+        fail("ident != plain version")
+    mirror = np.array([ic.host_banded_identity(a, b, return_counts=True)
+                       for a, b in pairs])
+    if not np.array_equal(got.cpu().numpy(), mirror):
+        fail("ident != the numpy mirror")
+    idents = ic.DeviceBandedIdentity(device=dev).identities(pairs, ms)
+    # the mirror's bail and identity (host_banded_identity's last lines)
+    want = [0.0 if sc >= ic.INF or sc >= m else
+            ic.identity_from_counts(mm, xx, gg)
+            for (sc, mm, xx, gg), m in zip(mirror.tolist(), ms)]
+    if idents != want:
+        fail("ident identities != the numpy mirror's")
+    bailed = sum(1 for (sc, *_), m in zip(mirror, ms) if sc >= m)
+    say(f"ident: {n_pairs} pairs (off-band, unrelated, lb = 0, {bailed} "
+        f"bailed by max_score) equal to the plain version and the numpy "
+        f"mirror, counts and identities (tolerance 0), "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    longs = []
+    for L in long_pairs:
+        a = _seq(rng, L)
+        longs.append((a, _mutate(rng, a, 0.01)))
+    packed = ic.pack_pairs([ic._prep_pair(a, b) for a, b in longs])
+    got = ic.ident_counts(*(packed[n].to(dev) for n in
+                            ("a", "aoff", "la", "b", "boff", "lb")))
+    mirror = np.array([ic.host_banded_identity(a, b, return_counts=True)
+                       for a, b in longs])
+    if not np.array_equal(got.cpu().numpy(), mirror):
+        fail("ident != the numpy mirror on the pairs past 46,340 bp")
+    say(f"ident: pairs of {[max(len(a), len(b)) for a, b in longs]} bp "
+        f"(past the int32 center bound) equal to the numpy mirror, "
+        f"identities {[round(ic.identity_from_counts(*c[1:]), 6) for c in mirror.tolist()]}, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # timing: a deep block of 512 sequences of ~1.4 kb
+    base = _seq(rng, 1400)
+    seqs = [_mutate(rng, base, 0.05) for _ in range(deep)]
+    codes, lens = (torch.from_numpy(a).to(dev)
+                   for a in mc.encode_batch(seqs))
+    B, L = codes.shape
+    k = 16
+    hash_ms = cuda_ms(torch, lambda: mc.minhash_hash(codes, lens, k))
+    h = mc.minhash_hash(codes, lens, k)
+    sort_ms = cuda_ms(torch, lambda: mc.sorted_sets(h))
+    hash_plain = cuda_ms(torch, lambda: mc.minhash_hash_reference(codes,
+                                                                  lens, k))
+    hash_lib = cuda_ms(torch, lambda: torch.sort(h, dim=1))
+    hs, counts = mc.sorted_sets(h)
+    ii, jj = np.triu_indices(B, 1)
+    pa = torch.from_numpy(ii.astype(np.int32)).to(dev)
+    pb = torch.from_numpy(jj.astype(np.int32)).to(dev)
+    inter_ms = cuda_ms(torch, lambda: mc.minhash_inter(hs, counts, pa, pb))
+    inter_plain = cuda_ms(torch, lambda: mc.minhash_inter_reference(
+        hs, counts, pa, pb), reps=1)
+    half = len(ii) // 2
+    inter_lib = cuda_ms(torch, lambda: torch.sort(torch.cat(
+        [hs[pa[:half].long()], hs[pb[:half].long()]], dim=1), dim=1),
+        reps=1) * len(ii) / half
+    torch.cuda.empty_cache()
+    cnt = counts.long()
+    # hash: the codes read (1 B a position) and the lengths, the uint32
+    # hashes written (4 B a position); inter: the hash rows read once (4 B
+    # a hash), the counts and the pairs (8 B), the counts written (4 B)
+    hash_bytes = (B * L * 5 + B * 4) / HBM_BYTES_PER_S * 1e3
+    hash_ops = int32_bound_ms(B * L * OPS_HASH_POS, clock_mhz)
+    hash_bound = max(hash_bytes, hash_ops)
+    hash_by = "bytes" if hash_bytes >= hash_ops else "operations"
+    inter_bytes = (B * L * 4 + B * 4 + len(ii) * 12) / HBM_BYTES_PER_S * 1e3
+    inter_ops = int32_bound_ms(int((cnt[pa.long()] + cnt[pb.long()]).sum())
+                               * OPS_MERGE_HASH, clock_mhz)
+    say(f"minhash timing, {B} x ~1.4 kb block (k {k}, {len(ii)} pairs): "
+        f"minhash_hash {hash_ms:.3f} ms + torch.sort and dedup "
+        f"{sort_ms:.3f} ms (the sort's share of the hash launch "
+        f"{sort_ms / (hash_ms + sort_ms):.1%}), plain {hash_plain:.3f} ms, "
+        f"torch.sort of the rows {hash_lib:.3f} ms, bound {hash_bound:.4f} "
+        f"ms by {hash_by}; minhash_inter {inter_ms:.3f} ms, plain "
+        f"{inter_plain:.1f} ms, torch.sort of the concatenated pairs "
+        f"{inter_lib:.1f} ms, bound {max(inter_bytes, inter_ops):.4f} ms by "
+        f"{'bytes' if inter_bytes >= inter_ops else 'operations'}")
+    pairs = [(s, _mutate(rng, s, 0.05)) for s in seqs[:64]] * (deep // 16)
+    packed = ic.pack_pairs([ic._prep_pair(a, b) for a, b in pairs])
+    ins = [packed[n].to(dev) for n in ("a", "aoff", "la", "b", "boff", "lb")]
+    ident_ms = cuda_ms(torch, lambda: ic.ident_counts(*ins))
+    ident_plain = cuda_ms(torch, lambda: ic.ident_counts_reference(*ins),
+                          reps=1)
+    cells = int(ins[2].long().sum()) * 128
+    ident_bound = int32_bound_ms(cells * OPS_IDENT_CELL, clock_mhz)
+    say(f"ident timing, {len(pairs)} pairs of ~1.4 kb (band 128): kernel "
+        f"{ident_ms:.3f} ms, plain {ident_plain:.1f} ms, bound "
+        f"{ident_bound:.4f} ms by operations ({cells} cells x "
+        f"{OPS_IDENT_CELL} int32 ops)")
+    return {
+        "minhash_hash": {"max_abs_err": 0, "ms": hash_ms,
+                         "plain_ms": hash_plain, "bound_ms": hash_bound,
+                         "bound_by": hash_by, "library_ms": hash_lib},
+        "minhash_inter": {"max_abs_err": 0, "ms": inter_ms,
+                          "plain_ms": inter_plain,
+                          "bound_ms": max(inter_bytes, inter_ops),
+                          "bound_by": ("bytes" if inter_bytes >= inter_ops
+                                       else "operations"),
+                          "library_ms": inter_lib},
+        "ident": {"max_abs_err": 0, "ms": ident_ms, "plain_ms": ident_plain,
+                  "bound_ms": ident_bound, "bound_by": "operations",
+                  "library_ms": None}}
+
+
+def sgd_main_path(gfa: str) -> int:
+    """Phase 16 (a): the CLI's default engine with -U 200 (B = steps x 200
+    >= 5M: the SGD kernel in prep) and one POA iteration, twice: exit 0 (lace validation), the
+    same GFA and MAF bytes, exactly sgd and poa_win launched.  Returns
+    sgd's launches of the first run."""
+    from smoothxg_tpu_torch import cli
+    from smoothxg_tpu_torch.io.gfa import read_gfa
+    from smoothxg_tpu_torch.ops.sgd import SGD_DEVICE_MIN_TERMS, sgd_problem
+    B = sgd_problem(read_gfa(gfa), min_term_updates_factor=200).B
+    if B < SGD_DEVICE_MIN_TERMS:
+        fail(f"-U 200 gives {B} term updates, below {SGD_DEVICE_MIN_TERMS}")
+    digests, first = [], None
+    for r in range(2):
+        out = os.path.join(SMOKE_DIR, f"sgd_main_{r}.gfa")
+        maf = os.path.join(SMOKE_DIR, f"sgd_main_{r}.maf")
+        log = Tee(sys.stderr)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(log):
+            (rc, _), launches = drive(
+                lambda: cli.run(["-g", gfa, "-o", out, "-m", maf,
+                                 *SGD_MAIN_FLAGS]), ("sgd", "poa_win"))
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"the -U 200 main path exited {rc}")
+        digests.append((sha256(out), sha256(maf)))
+        first = first or launches
+        say(f"sgd main path run {r + 1} (CLI default engine, "
+            f"{' '.join(SGD_MAIN_FLAGS)}, B = {B}): {wall:.2f} s wall, launches {launches}, GFA sha256 "
+            f"{digests[-1][0][:16]}, MAF sha256 {digests[-1][1][:16]} "
+            f"({'; '.join(smoothing_phases(log.getvalue()))})")
+    if digests[0] != digests[1]:
+        fail("the -U 200 main path gave other bytes on its second run")
+    return first["sgd"]
+
+
+def split_main_path() -> dict:
+    """Phase 16 (b): the CLI with --engine native and both split device
+    routes on the divergent fixture (make_divergent_gfa over the
+    generator's 8 x 20 kb pangenome): exactly the split kernels launched,
+    splits in break_stats, and the GFA and MAF bytes of the same run
+    through run_smoothing(cfg, device="cpu") (the plain versions).
+    Returns the split kernels' launches."""
+    import re
+    from smoothxg_tpu_torch import cli
+    from smoothxg_tpu_torch.io.synth import make_divergent_gfa
+    from smoothxg_tpu_torch.pipeline.run import run_smoothing
+    from smoothxg_tpu_torch.testing.synth import write_pangenome
+    src = write_pangenome(os.path.join(SMOKE_DIR, "divergent_src.gfa"),
+                          **DIVERGENT)
+    div = os.path.join(SMOKE_DIR, "divergent.gfa")
+    make_divergent_gfa(src, div, tiles=2, seed=7)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(SMOKE_DIR, f"split_{dev}.gfa")
+        maf = os.path.join(SMOKE_DIR, f"split_{dev}.maf")
+        argv = ["-g", div, "-o", out, "-m", maf, *SPLIT_FLAGS]
+        log = Tee(sys.stderr)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(log):
+            if dev == "cuda":
+                (rc, _), launches = drive(lambda: cli.run(argv), SPLIT)
+            else:
+                args = cli.build_parser().parse_args(argv)
+                run_smoothing(cli.config_from_args(
+                    args, add_consensus=not args.vanish_consensus),
+                    device="cpu")
+                rc = 0
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"the split main path exited {rc}")
+        split = [int(n) for n in re.findall(r"split (\d+) blocks",
+                                            log.getvalue())]
+        outs[dev] = (sha256(out), sha256(maf))
+        say(f"split main path ({'CLI, the kernels' if dev == 'cuda' else 'run_smoothing(device=cpu), the plain versions'}"
+            f"): {wall:.2f} s wall, blocks split {split}, GFA sha256 "
+            f"{outs[dev][0][:16]}, MAF sha256 {outs[dev][1][:16]}"
+            + (f", launches {launches}" if dev == "cuda" else ""))
+        if not split or not max(split):
+            fail("the split main path split no block")
+    if outs["cuda"] != outs["cpu"]:
+        fail("the split main path's kernels and plain versions gave other "
+             "bytes")
+    return launches
 
 
 def engine_run(gfa: str, out: str, maf: str, engine):
@@ -1131,6 +1600,16 @@ def main() -> None:
         launches[fam] = entries[fam].pop("launches")
     stage_phase(torch, dev, timing)
 
+    # phases 14-16: the SGD layout at full size, the split stage's kernels,
+    # and the main paths through them
+    entries["sgd"] = sgd_phase(torch, dev)
+    launches["sgd"] = entries["sgd"].pop("launches")
+    torch.cuda.empty_cache()
+    entries.update(split_phase(torch, dev, clock_mhz))
+    torch.cuda.empty_cache()
+    sgd_main_path(gfa)
+    launches.update(split_main_path())
+
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "smoothxg_tpu."))
                     or m == "smoothxg_tpu")
@@ -1140,7 +1619,12 @@ def main() -> None:
     replaces = {"poa_win": "smoothxg_tpu/ops/poa_pallas_win.py:64",
                 "poa_round": "smoothxg_tpu/ops/poa_pallas.py:54",
                 "poa_code": "smoothxg_tpu/ops/poa_pallas_fused.py:86",
-                "poa_stacked": "smoothxg_tpu/ops/poa_pallas_stacked.py:79"}
+                "poa_stacked": "smoothxg_tpu/ops/poa_pallas_stacked.py:79",
+                "sgd": "smoothxg_tpu/ops/sgd.py:49",
+                "minhash_hash": "smoothxg_tpu/ops/minhash_jax.py:107",
+                "minhash_inter": "smoothxg_tpu/ops/minhash_jax.py:139",
+                "ident": "smoothxg_tpu/ops/ident_jax.py:62"}
+    sources = {"minhash_hash": "minhash", "minhash_inter": "minhash"}
     kernels = []
     for n in KERNELS:
         if n in PROBE_FAMILIES:
@@ -1148,7 +1632,8 @@ def main() -> None:
                      "replaces": PROBE_FAMILIES[n][2],
                      "also_replaces": PROBE_FAMILIES[n][3]}
         else:
-            extra = {"source": f"smoothxg_tpu_torch/csrc/{n}.cu",
+            extra = {"source": "smoothxg_tpu_torch/csrc/"
+                               f"{sources.get(n, n)}.cu",
                      "replaces": replaces[n]}
         kernels.append({"name": n, "route": "cuda", **extra,
                         "launches": launches[n], **entries[n]})

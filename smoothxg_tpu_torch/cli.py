@@ -60,11 +60,13 @@ def build_parser() -> argparse.ArgumentParser:
     bs.add_argument("-E", "--block-est-id-max", type=float, default=None)
     bs.add_argument("-k", "--kmer-size-mash-distance", type=int, default=17)
     bs.add_argument("--device-split-minhash", action="store_true",
-                    help="not yet ported (the JAX package's batched "
-                         "all-pairs mash distances on the device)")
+                    help="compute split-stage mash distances as one "
+                         "batched all-pairs pass on the GPU (uint32 hash "
+                         "space, k clamped to 16; csrc/minhash.cu)")
     bs.add_argument("--device-split-wfa", action="store_true",
-                    help="not yet ported (the JAX package's batched "
-                         "banded alignment identities on the device)")
+                    help="compute split-stage alignment identities as "
+                         "one batched banded counts-carrying DP pass on "
+                         "the GPU (csrc/ident.cu)")
 
     poa = p.add_argument_group("POA")
     poa.add_argument("-p", "--poa-params", default="1,4,6,2,26,1")
@@ -232,11 +234,6 @@ def run(argv=None):
     if args.dist_size > 1:
         print("[smoothxg_tpu_torch] error: multi-process runs are not yet "
               "ported (--dist-size)", file=sys.stderr)
-        return 1, None
-    if args.device_split_minhash or args.device_split_wfa:
-        print("[smoothxg_tpu_torch] error: the split-stage device routes are "
-              "not yet ported (--device-split-minhash, --device-split-wfa)",
-              file=sys.stderr)
         return 1, None
 
     from .pipeline.consensus_graph import parse_consensus_spec

@@ -2,11 +2,13 @@
 imported, into smoothxg_tpu_torch/_build/, keyed by a hash of the sources
 and flags.
 
-* CUDA kernels: each csrc/*.cu (with the shared csrc/*.cuh) compiles with
-  its own nvcc process, all started together, and one nvcc call links the
-  objects into one shared library with a plain C interface (pointers and
-  the stream go in as c_void_p), loaded with ctypes.  No PyTorch headers
-  are involved, so a build takes seconds.
+* CUDA kernels (the POA kernels, the probes, the SGD layout's sgd.cu and
+  the split stage's minhash.cu and ident.cu): each csrc/*.cu (with the
+  shared csrc/*.cuh) compiles with its own nvcc process, all started
+  together, and one nvcc call links the objects into one shared library
+  with a plain C interface (pointers and the stream go in as c_void_p),
+  loaded with ctypes.  No PyTorch headers are involved, so a build takes
+  seconds.
 * Host libraries: each csrc/host/<name>.cpp compiles with g++ into
   lib<name>.so (graphcore, cpoa, sgd, wfa), with the flags the JAX
   package's native/Makefile uses, so both packages compute the same bytes.
@@ -173,6 +175,16 @@ def load() -> ctypes.CDLL:
             lib.probe_step_launch.argtypes = [ci] * 3 + [vp] * 4
             for fam in ("scalar", "row", "tile", "step"):
                 getattr(lib, f"probe_{fam}_launch").restype = ci
+            # the SGD layout and the split stage (csrc/sgd.cu, minhash.cu,
+            # ident.cu)
+            lib.sgd_iter_launch.argtypes = [vp] * 8 + [ctypes.c_float, ci,
+                                                       vp]
+            lib.minhash_hash_launch.argtypes = [vp] * 3 + [ci] * 3 + [vp]
+            lib.minhash_inter_launch.argtypes = [vp] * 5 + [ci] * 2 + [vp]
+            lib.ident_launch.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+            for fn in ("sgd_iter_launch", "minhash_hash_launch",
+                       "minhash_inter_launch", "ident_launch"):
+                getattr(lib, fn).restype = ci
             lib.poa_win_error_string.argtypes = [ci]
             lib.poa_win_error_string.restype = ctypes.c_char_p
             _LIB = lib

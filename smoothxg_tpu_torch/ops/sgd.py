@@ -1,4 +1,5 @@
-"""Path-guided 1D SGD graph sort on the host (csrc/host/sgd.cpp).
+"""Path-guided 1D SGD graph sort: the native C++ host backend
+(csrc/host/sgd.cpp) and the batched route on the GPU (csrc/sgd.cu).
 
 Equivalent capability to odgi's path_linear_sgd_order used by the reference's
 prep stage (reference: src/prep.cpp:30-125; hyperparameters: iter_max=100,
@@ -8,16 +9,46 @@ Terms sample a step uniformly, a second step of the same path at a
 zipf-distributed rank distance, and pull the two nodes' 1D positions toward
 their nucleotide distance along the path.
 
-The port keeps the native C++ backend (sequential updates — the exact
-semantics the reference's Hogwild threads approximate), which the JAX
-package takes below 5M term updates per iteration.  Its batched device
-route for larger graphs is not yet ported (ROADMAP A8).
+Routes (`path_sgd_order(device=...)`, named after the JAX package's):
+  * "native": sequential updates on the host — the exact semantics the
+    reference's Hogwild threads approximate;
+  * "cuda": the batched route of smoothxg_tpu/ops/sgd.py:_compiled_run on
+    the card, one launch of the hand-written kernel csrc/sgd.cu an
+    iteration (`sgd_iter`); the JAX package's "default";
+  * "cpu": the same batched route through its plain PyTorch version,
+    `sgd_reference`, on the host (the JAX package's "cpu");
+  * "auto": "native" below SGD_DEVICE_MIN_TERMS term updates an iteration,
+    `auto_device` ("cuda" unless the caller says "cpu") at or above.  It
+    never falls back: without a card the "cuda" route raises "CUDA
+    required".
+
+The batched route: an iteration applies B_pad = ceil(_bucket(B) / 1024) *
+1024 term updates as B_pad / 1024 sequential minibatches, conflict-averaged
+within a minibatch (x[n] += acc[n] / max(cnt[n], 1)) and compounding across
+them; float32 positions and x; then a stable argsort of x.  The draws (i1
+uniform over the steps, the zipf rank z by searchsorted on the float32 CDF
+capped by the iteration's cap, the sign) come from a torch.Generator seeded
+from `seed` on the run's device, one iteration at a time (`sgd_draws`).
+They cannot reproduce jax.random's streams, so the route matches the JAX
+package on quality (rank-jump), and on the same draws within float
+rounding.  i1 is drawn as an integer: the JAX package's floor(u * T) from a
+float32 uniform reaches at most 2^23 distinct steps (ROADMAP C8).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+from dataclasses import dataclass
+
 import numpy as np
+import torch
 
 from ..graph.mutable import MutableGraph
+
+# "auto" takes the batched route at or above this many term updates an
+# iteration (the JAX package's threshold, smoothxg_tpu/ops/sgd.py:242)
+SGD_DEVICE_MIN_TERMS = 5_000_000
+MINIBATCH = 1024
 
 
 def _zipf_cdf(n: int, theta: float) -> np.ndarray:
@@ -25,6 +56,13 @@ def _zipf_cdf(n: int, theta: float) -> np.ndarray:
     w = ranks ** (-theta)
     cdf = np.cumsum(w)
     return cdf / cdf[-1]
+
+
+def _bucket(v: int, base: float = 1.3, floor: int = 256) -> int:
+    b = floor
+    while b < v:
+        b = int(np.ceil(b * base))
+    return b
 
 
 _NATIVE = None
@@ -38,7 +76,6 @@ def _native_lib():
     if _NATIVE is not None or _NATIVE_TRIED:
         return _NATIVE
     _NATIVE_TRIED = True
-    import ctypes
 
     from ._build import host_lib
     path = host_lib("sgd")
@@ -60,29 +97,65 @@ def _native_lib():
     return _NATIVE
 
 
-def path_sgd_order(
-    g: MutableGraph,
-    iter_max: int = 100,
-    eps: float = 0.01,
-    theta: float = 0.99,
-    cooling_start: float = 0.5,
-    min_term_updates_factor: float = 1.0,
-    seed: int = 9399527, # fnv-ish hash of "pangenomic!"
-    device: str = "auto",
-    threads: int = 1,
-) -> list[int]:
-    """Returns node ids ordered by their optimized 1D position.
+@dataclass
+class SGDProblem:
+    """A graph's SGD layout: flat step arrays over all paths (node index,
+    position of the node's center along the path, the path's first step
+    and step count), the zipf CDF over ranks 1..zipf_space, the learning
+    rate schedule (eta_max, lam), B term updates an iteration and the
+    initial positions x0 (node centers in node order)."""
+    node_ids: list
+    node: np.ndarray       # (T,) int32
+    pos: np.ndarray        # (T,) float64
+    start: np.ndarray      # (T,) int32
+    count: np.ndarray      # (T,) int32
+    zipf_space: int
+    cdf: np.ndarray        # (zipf_space,) float64
+    eta_max: float
+    lam: float
+    B: int
+    x0: np.ndarray         # (n,) float64
 
-    device: "auto" and "native" run the native C++ host backend; "auto"
-    takes it below 5M term updates per iteration, as the JAX package does,
-    and raises NotImplementedError above (the device route is not yet
-    ported, ROADMAP A8).
-    threads: Hogwild worker count for the native backend (>1 is racy and
-    non-deterministic, like the reference; the pipeline keeps 1)."""
+    @property
+    def T(self) -> int:
+        return len(self.node)
+
+    @property
+    def B_pad(self) -> int:
+        """Term updates an iteration on the batched route: whole
+        minibatches."""
+        return -(-_bucket(self.B) // MINIBATCH) * MINIBATCH
+
+    def etas(self, iter_max: int) -> np.ndarray:
+        """The float32 learning rate of each iteration."""
+        return (self.eta_max * np.exp(-self.lam * np.arange(iter_max))
+                ).astype(np.float32)
+
+    def caps(self, iter_max: int, cooling_start: float) -> list[int]:
+        """The zipf rank cap of each iteration: the whole zipf space
+        before iter_max * cooling_start, at most 1000 after."""
+        return [self.zipf_space if t < iter_max * cooling_start
+                else min(self.zipf_space, 1000) for t in range(iter_max)]
+
+    def tensors(self, dev: torch.device) -> dict:
+        """The step arrays and the CDF on `dev`, float32 as the kernel
+        takes them."""
+        return {"node": torch.from_numpy(self.node).to(dev),
+                "pos": torch.from_numpy(self.pos.astype(np.float32)).to(dev),
+                "start": torch.from_numpy(self.start).to(dev),
+                "count": torch.from_numpy(self.count).to(dev),
+                "cdf": torch.from_numpy(self.cdf.astype(np.float32)).to(dev)}
+
+
+def sgd_problem(g: MutableGraph, iter_max: int = 100, eps: float = 0.01,
+                theta: float = 0.99, min_term_updates_factor: float = 1.0
+                ) -> SGDProblem | None:
+    """The SGD layout of `g`; None when there is nothing to sort (at most
+    one node, or no path steps)."""
     node_ids = list(g.node_ids())
     n = len(node_ids)
     if n <= 1:
-        return node_ids
+        return None
     ids_arr = np.fromiter(node_ids, dtype=np.int64, count=n)
     # dense lookup: node id -> index in node_ids (ids are small ints)
     lut = np.full(int(ids_arr.max()) + 1, -1, dtype=np.int32)
@@ -103,41 +176,230 @@ def path_sgd_order(
     lens = [len(ix) for ix, _ in per_path]
     T = int(sum(lens))
     if T == 0:
-        return node_ids
-    st_node = np.concatenate([ix for ix, _ in per_path])
-    st_pos = np.concatenate([p for _, p in per_path])
+        return None
     offs = np.cumsum([0] + lens[:-1])
-    step_path_start = np.repeat(offs.astype(np.int32), lens)
-    step_path_count = np.repeat(np.asarray(lens, np.int32), lens)
-
     max_steps = max(lens) if lens else 1
     zipf_space = int(max(2, max_steps))
-    cdf = _zipf_cdf(zipf_space, theta)
-
     eta_max = float(max_steps) ** 2
-    lam = np.log(eta_max / eps) / max(iter_max - 1, 1)
-    B = max(int(min_term_updates_factor * T), 1)
+    return SGDProblem(
+        node_ids=node_ids,
+        node=np.concatenate([ix for ix, _ in per_path]),
+        pos=np.concatenate([p for _, p in per_path]),
+        start=np.repeat(offs.astype(np.int32), lens),
+        count=np.repeat(np.asarray(lens, np.int32), lens),
+        zipf_space=zipf_space, cdf=_zipf_cdf(zipf_space, theta),
+        eta_max=eta_max,
+        lam=float(np.log(eta_max / eps) / max(iter_max - 1, 1)),
+        B=max(int(min_term_updates_factor * T), 1),
+        # init positions at current vector offsets (node center)
+        x0=np.cumsum(node_len) - node_len / 2.0)
 
-    # init positions at current vector offsets (node center)
-    x0 = np.cumsum(node_len) - node_len / 2.0
 
-    if device == "auto" and B >= 5_000_000:
-        raise NotImplementedError(
-            f"path SGD with {B} term updates per iteration takes the device "
-            f"route, which is not yet ported (ROADMAP A8)")
-    if device not in ("auto", "native"):
-        raise ValueError(f"unknown SGD device {device!r} (auto or native)")
+def path_sgd_order(
+    g: MutableGraph,
+    iter_max: int = 100,
+    eps: float = 0.01,
+    theta: float = 0.99,
+    cooling_start: float = 0.5,
+    min_term_updates_factor: float = 1.0,
+    seed: int = 9399527, # fnv-ish hash of "pangenomic!"
+    device: str = "auto",
+    threads: int = 1,
+    auto_device: str = "cuda",
+) -> list[int]:
+    """Returns node ids ordered by their optimized 1D position.
+
+    device: "native", "cuda", "cpu" or "auto" (module docstring); "auto"
+    takes `auto_device` at or above SGD_DEVICE_MIN_TERMS term updates an
+    iteration.
+    threads: Hogwild worker count for the native backend (>1 is racy and
+    non-deterministic, like the reference; the pipeline keeps 1)."""
+    prob = sgd_problem(g, iter_max, eps, theta, min_term_updates_factor)
+    if prob is None:
+        return list(g.node_ids())
+    route = device
+    if device == "auto":
+        route = "native" if prob.B < SGD_DEVICE_MIN_TERMS else auto_device
+    if route == "native":
+        x = native_solve(prob, iter_max, cooling_start, seed, threads)
+    elif route in ("cuda", "cpu"):
+        x = sgd_solve(prob, iter_max, cooling_start, seed, route)
+        x = x.cpu().numpy().astype(np.float64)
+    else:
+        raise ValueError(f"unknown SGD device {device!r} "
+                         f"(auto, native, cuda or cpu)")
+    order = np.argsort(x, kind="stable")
+    return [prob.node_ids[i] for i in order]
+
+
+def native_solve(prob: SGDProblem, iter_max: int, cooling_start: float,
+                 seed: int, threads: int = 1) -> np.ndarray:
+    """Final positions from the native C++ backend (float64)."""
     lib = _native_lib()
     if lib is None:
         raise RuntimeError("native SGD backend unavailable "
                            "(csrc/host/sgd.cpp failed to build)")
-    x = x0.copy()
-    lib.sgd_solve(T, np.ascontiguousarray(st_node),
-                  np.ascontiguousarray(st_pos),
-                  np.ascontiguousarray(step_path_start),
-                  np.ascontiguousarray(step_path_count),
-                  zipf_space, np.ascontiguousarray(cdf),
-                  iter_max, eta_max, float(lam),
-                  cooling_start, B, seed, max(int(threads), 1), x)
-    order = np.argsort(x, kind="stable")
-    return [node_ids[i] for i in order]
+    x = prob.x0.copy()
+    lib.sgd_solve(prob.T, np.ascontiguousarray(prob.node),
+                  np.ascontiguousarray(prob.pos),
+                  np.ascontiguousarray(prob.start),
+                  np.ascontiguousarray(prob.count),
+                  prob.zipf_space, np.ascontiguousarray(prob.cdf),
+                  iter_max, prob.eta_max, float(prob.lam),
+                  cooling_start, prob.B, seed, max(int(threads), 1), x)
+    return x
+
+
+def sgd_solve(prob: SGDProblem, iter_max: int = 100,
+              cooling_start: float = 0.5, seed: int = 9399527,
+              device: str | torch.device = "cuda") -> torch.Tensor:
+    """Final float32 positions from the batched route on `device` ("cuda":
+    the kernel; "cpu": its plain version): iter_max iterations of
+    prob.B_pad term updates, each drawn on the device and applied by
+    `sgd_iter`."""
+    for step in sgd_steps(prob, iter_max, cooling_start, seed, device):
+        x = step()
+    return x
+
+
+def sgd_steps(prob: SGDProblem, iter_max: int = 100,
+              cooling_start: float = 0.5, seed: int = 9399527,
+              device: str | torch.device = "cuda"):
+    """`sgd_solve`'s loop, one iteration at a time: draws an iteration's
+    terms, then yields the call that applies them (`sgd_iter`; it returns
+    x).  So a caller that times the call times the launch alone
+    (tools/time_sgd.py)."""
+    from ..device import resolve
+    if iter_max < 1:
+        raise ValueError(f"iter_max must be at least 1: {iter_max}")
+    dev = resolve(device, what=f"path SGD at {prob.B} term updates an "
+                  f"iteration takes its CUDA kernel (csrc/sgd.cu)",
+                  instead="pass device='native' or 'cpu' for a host run")
+    arr = prob.tensors(dev)
+    x = torch.from_numpy(prob.x0.astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    etas = prob.etas(iter_max)
+    for t, cap in enumerate(prob.caps(iter_max, cooling_start)):
+        i1, z, sgn = sgd_draws(gen, prob.T, prob.B_pad, arr["cdf"], cap)
+        yield functools.partial(sgd_iter, x, i1, z, sgn, arr["node"],
+                                arr["pos"], arr["start"], arr["count"],
+                                float(etas[t]))
+
+
+def sgd_draws(gen: torch.Generator, T: int, B: int, cdf: torch.Tensor,
+              cap: int) -> tuple:
+    """One iteration's draws on the generator's device: i1 (B,) int32
+    uniform over [0, T), z (B,) int32 the zipf rank searchsorted(cdf, u) +
+    1 capped at `cap`, sgn (B,) int8 +1 or -1."""
+    dev = cdf.device
+    i1 = torch.randint(0, T, (B,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    u = torch.rand(B, generator=gen, device=dev, dtype=torch.float32)
+    z = torch.searchsorted(cdf, u).add_(1).clamp_max_(cap).to(torch.int32)
+    sgn = torch.randint(0, 2, (B,), generator=gen, device=dev,
+                        dtype=torch.int8).mul_(2).sub_(1)
+    return i1, z, sgn
+
+
+def _check(x, i1, z, sgn, node, pos, start, count) -> None:
+    dev = x.device
+    want = ((x, torch.float32), (i1, torch.int32), (z, torch.int32),
+            (sgn, torch.int8), (node, torch.int32), (pos, torch.float32),
+            (start, torch.int32), (count, torch.int32))
+    for t, dt in want:
+        if t.dtype != dt or t.device != dev or t.dim() != 1 \
+                or not t.is_contiguous():
+            raise ValueError(f"sgd_iter wants contiguous 1-D {dt} tensors "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    B = i1.numel()
+    if B % MINIBATCH or z.numel() != B or sgn.numel() != B:
+        raise ValueError(f"sgd_iter wants B a multiple of {MINIBATCH} "
+                         f"draws of each kind")
+    T = node.numel()
+    if pos.numel() != T or start.numel() != T or count.numel() != T:
+        raise ValueError("node, pos, start and count must have T steps")
+
+
+def sgd_iter(x: torch.Tensor, i1: torch.Tensor, z: torch.Tensor,
+             sgn: torch.Tensor, node: torch.Tensor, pos: torch.Tensor,
+             start: torch.Tensor, count: torch.Tensor,
+             eta: float) -> torch.Tensor:
+    """One iteration of len(i1) term updates applied to x in place.  CUDA
+    tensors launch csrc/sgd.cu (and raise on a launch error); CPU tensors
+    run the plain version, `sgd_reference`.  Returns x."""
+    _check(x, i1, z, sgn, node, pos, start, count)
+    if x.device.type == "cpu":
+        return sgd_reference(x, i1, z, sgn, node, pos, start, count, eta)
+    if x.device.type != "cuda":
+        raise ValueError(f"sgd_iter: unsupported device {x.device}")
+    from . import _build
+    lib = _build.load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = lib.sgd_iter_launch(
+            x.data_ptr(), node.data_ptr(), pos.data_ptr(), start.data_ptr(),
+            count.data_ptr(), i1.data_ptr(), z.data_ptr(), sgn.data_ptr(),
+            ctypes.c_float(eta), i1.numel(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sgd kernel launch failed: CUDA error {rc} "
+                           f"({lib.poa_win_error_string(rc).decode()})")
+    sgd_iter.launches += 1
+    return x
+
+
+sgd_iter.launches = 0     # kernel launches made by this wrapper
+
+
+def sgd_reference(x: torch.Tensor, i1: torch.Tensor, z: torch.Tensor,
+                  sgn: torch.Tensor, node: torch.Tensor, pos: torch.Tensor,
+                  start: torch.Tensor, count: torch.Tensor, eta: float,
+                  mb: int = MINIBATCH) -> torch.Tensor:
+    """Plain PyTorch version of csrc/sgd.cu, on any device, in place on x:
+    the minibatches of smoothxg_tpu/ops/sgd.py:_compiled_run's `one_mb` in
+    order, with each node's contributions summed from 0.0 in the kernel's
+    order (the n1 side in term order, then the n2 side) — one index_add_
+    per occurrence rank, so no add has two contributions to one node —
+    and x written once per node touched.  Bit-identical to the kernel on
+    the same draws."""
+    dev = x.device
+    eta_t = torch.tensor(eta, dtype=torch.float32, device=dev)
+    for s in range(0, i1.numel(), mb):
+        a = i1[s:s + mb].long()
+        sz = sgn[s:s + mb].int() * z[s:s + mb]
+        st, cnt = start[a], count[a]
+        r1 = a.int() - st
+        r2 = r1 + sz
+        r2 = torch.where((r2 < 0) | (r2 >= cnt), r1 - sz, r2)
+        r2 = torch.minimum(r2.clamp_min(0), cnt - 1)
+        b = (st + r2).long()
+        n1, n2 = node[a].long(), node[b].long()
+        d = (pos[a] - pos[b]).abs()
+        ok = (n1 != n2) & (d > 0)
+        d = d.clamp_min(1e-3)
+        mu = (eta_t / (d * d)).clamp_max(1.0)
+        x1, x2 = x[n1], x[n2]
+        dx = x1 - x2
+        mag = dx.abs() + 1e-9
+        delta = mu * (mag - d) / 2.0
+        rr = torch.where(ok, delta / mag, torch.zeros_like(mag))
+        upd = rr * dx
+        keys = torch.cat([n1, n2])
+        vals = torch.cat([-upd, upd])
+        hits = torch.cat([ok, ok]).to(torch.float32)
+        xs = torch.cat([x1, x2])
+        skey, perm = torch.sort(keys, stable=True)
+        head = torch.ones_like(skey, dtype=torch.bool)
+        head[1:] = skey[1:] != skey[:-1]
+        seg = torch.cumsum(head, 0) - 1
+        heads = torch.nonzero(head).squeeze(1)
+        rank = torch.arange(len(skey), device=dev) - heads[seg]
+        acc = torch.zeros(len(heads), dtype=torch.float32, device=dev)
+        cn = torch.zeros_like(acc)
+        for r in range(int(rank.max()) + 1):
+            sel = rank == r
+            acc.index_add_(0, seg[sel], vals[perm[sel]])
+            cn.index_add_(0, seg[sel], hits[perm[sel]])
+        x[skey[heads]] = xs[perm[heads]] + acc / cn.clamp_min(1.0)
+    return x

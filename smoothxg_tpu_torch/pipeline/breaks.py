@@ -54,6 +54,7 @@ def break_blocks(
     threads: int = 1,
     device_minhash: bool = False,
     device_wfa: bool = False,
+    device: str = "cuda",
 ) -> Blockset:
     kw = dict(
         max_poa_length=max_poa_length, min_copy_length=min_copy_length,
@@ -70,6 +71,7 @@ def break_blocks(
         min_dedup_depth_mash=min_dedup_depth_for_mash_clustering,
         device_minhash=device_minhash,
         device_wfa=device_wfa,
+        device=device,
     )
     blocks = list(blockset)
     if (device_minhash or device_wfa) and threads > 1:
@@ -141,6 +143,7 @@ def _break_one(idx, block, kw) -> tuple[list[Block], int, int]:
         min_dedup_depth_mash=kw["min_dedup_depth_mash"],
         device_minhash=kw.get("device_minhash", False),
         device_wfa=kw.get("device_wfa", False),
+        device=kw.get("device", "cuda"),
     )
     return splits, counters[0], counters[1]
 
@@ -212,7 +215,8 @@ def _cut_block(idx, block, max_poa_length, min_copy_length, max_copy_length,
 def _split_block(idx, block, *, length_ratio_min, min_length_mash,
                  block_group_identity, block_group_est_identity, kmer_size,
                  min_dedup_depth_split, min_dedup_depth_mash,
-                 device_minhash=False, device_wfa=False) -> list[Block]:
+                 device_minhash=False, device_wfa=False,
+                 device="cuda") -> list[Block]:
     if not ((block_group_identity > 0 or block_group_est_identity > 0)
             and len(block.path_ranges) > 1):
         return [block]
@@ -245,10 +249,16 @@ def _split_block(idx, block, *, length_ratio_min, min_length_mash,
                     and (min_dedup_depth_mash == 0 or len(seqs) >= min_dedup_depth_mash))
     dmat = None
     if device_minhash and mash_enabled:
-        # the JAX package's device route (all pairwise mash distances in
-        # one batched pass, ops/minhash_jax there)
-        raise NotImplementedError(
-            "--device-split-minhash is not yet ported to smoothxg_tpu_torch")
+        # device route: ALL pairwise mash distances in one batched pass
+        # on the run's device (uint32 hash space, k clamped to 16 — see
+        # ops/minhash_cuda); the greedy clusterer below then reads the
+        # matrix, so its decisions are deterministic regardless of
+        # iteration order
+        el = np.array([len(s) >= min_length_mash for s in seqs])
+        if int(el.sum()) >= 2:
+            from ..ops.minhash_cuda import DeviceMinHash
+            dmat = DeviceMinHash(k=min(16, kmer_size),
+                                 device=device).distance_matrix(seqs, el)
     hashes = [kmer_hashes(s, kmer_size)
               if (dmat is None and mash_enabled
                   and len(s) >= min_length_mash)
@@ -263,10 +273,24 @@ def _split_block(idx, block, *, length_ratio_min, min_length_mash,
     ident_fwd: dict = {}
     ident_rev: dict = {}
     if device_wfa and block_group_identity > 0:
-        # the JAX package's device route (every alignment identity as one
-        # banded counts-carrying DP pass, ops/ident_jax there)
-        raise NotImplementedError(
-            "--device-split-wfa is not yet ported to smoothxg_tpu_torch")
+        # device route: every alignment-identity the greedy loop below
+        # could consult, batched as one banded counts-carrying DP pass on
+        # the run's device (ops/ident_cuda) — fwd and revcomp
+        # orientations; per-pair score bound = len(curr), the host
+        # route's max_score
+        from ..ops.ident_cuda import DeviceBandedIdentity
+        need = [(i, o) for i in range(1, len(seqs)) for o in range(i)
+                if _wfa_branch(i, o)
+                and len(seqs[o]) / len(seqs[i]) >= length_ratio_min]
+        if need:
+            dev = DeviceBandedIdentity(device=device)
+            pf = [(seqs[i], seqs[o]) for i, o in need]
+            prv = [(revcomp(seqs[i]), seqs[o]) for i, o in need]
+            mscores = [len(seqs[i]) for i, _ in need] * 2
+            vals = dev.identities(pf + prv, max_score=mscores)
+            for t, (i, o) in enumerate(need):
+                ident_fwd[(i, o)] = vals[t]
+                ident_rev[(i, o)] = vals[len(need) + t]
 
     groups: list[list[int]] = [[0]]
     one_minus_id = 1.0 - block_group_identity

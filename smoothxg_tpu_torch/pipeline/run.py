@@ -5,8 +5,10 @@ src/main.cpp:374-1045): for each POA length target, prep -> index -> find
 blocks -> break/split -> smooth -> lace/validate -> (last iteration: MAF +
 consensus) -> unchop -> GFA; then optional consensus graph derivation
 (reference: src/main.cpp:1067-1131).  A copy of
-smoothxg_tpu/pipeline/run.py whose engines are the port's: the GPU engines
-run on `device`, and the multi-process route is not yet ported.
+smoothxg_tpu/pipeline/run.py whose engines are the port's: the GPU engines,
+the SGD layout at 5M term updates an iteration or more and the split
+stage's device routes run on `device` (their plain versions on a CPU run),
+and the multi-process route is not yet ported.
 """
 from __future__ import annotations
 
@@ -54,7 +56,8 @@ class Config:
     min_length_mash_based_clustering: int = 200
     kmer_size: int = 17
     # device routes of the split stage (mash distances, alignment
-    # identities): not yet ported, True raises in pipeline/breaks
+    # identities): csrc/minhash.cu and csrc/ident.cu on the run's device
+    # (their plain versions on a CPU run)
     device_split_minhash: bool = False
     device_split_wfa: bool = False
     # POA
@@ -188,7 +191,7 @@ def run_smoothing(cfg: Config, device: str | torch.device = "cuda",
                 with phase(tag, "prepping graph"):
                     g = prep(g, cfg.node_chop, use_sgd=cfg.use_sgd,
                              sgd_term_updates=cfg.sgd_term_updates,
-                             threads=cfg.threads or 1)
+                             threads=cfg.threads or 1, device=device)
             else:
                 g = g.compact()
             with phase(tag, "building flat index"):
@@ -232,7 +235,8 @@ def run_smoothing(cfg: Config, device: str | torch.device = "cuda",
                 write_split_blocks_dir=(tmpdir if cfg.write_split_blocks else ""),
                 threads=cfg.threads,
                 device_minhash=cfg.device_split_minhash,
-                device_wfa=cfg.device_split_wfa)
+                device_wfa=cfg.device_split_wfa,
+                device=device)
 
         m, n, gp, e, q, c = cfg.poa_params
         # abPOA mode always aligns adaptively banded (reference:

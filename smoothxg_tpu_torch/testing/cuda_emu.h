@@ -1,5 +1,6 @@
 // cuda_emu.h — just enough of the CUDA runtime to run the port's POA
-// kernels and its probes on the CPU, for testing their
+// kernels, its split-stage and SGD kernels and its probes on the CPU, for
+// testing their
 // logic where there is no GPU (smoothxg_tpu_torch/testing/cuda_emu.py
 // compiles a kernel source against it with g++ -std=c++20).
 //
@@ -14,6 +15,7 @@
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <functional>
@@ -99,6 +101,12 @@ inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 inline unsigned __umulhi(unsigned a, unsigned b) {
     return (unsigned)(((unsigned long long)a * b) >> 32);
 }
+// round-to-nearest float arithmetic: plain operations on the host (the
+// emulation builds without FMA contraction)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 // cache-operator loads and stores: plain accesses on the host
 template <typename T>
 inline T __ldcg(const T* p) { return *p; }

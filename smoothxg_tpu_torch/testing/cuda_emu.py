@@ -1,6 +1,6 @@
 """Run a kernel source of the port (csrc/poa_win.cu, poa_code.cu,
-poa_stacked.cu, poa_round.cu, probes.cu) on the CPU, for testing its logic
-where there is no GPU and no nvcc.
+poa_stacked.cu, poa_round.cu, probes.cu, sgd.cu, minhash.cu, ident.cu) on
+the CPU, for testing its logic where there is no GPU and no nvcc.
 
 `build(name, workdir)` rewrites csrc/<name>.cu for the CUDA emulation in
 testing/cuda_emu.h (dynamic shared memory becomes a host buffer, a
@@ -17,7 +17,9 @@ round inputs and returns (codes, meta) and its geometry (threads a block,
 one-tile rows with the ring, sequence and row tables in shared memory,
 shared bytes, blocks an SM).
 `run_probe(exe, family, ...)` launches `probe_<family>_launch` of probes.cu
-and returns its 128 outputs.  A race between threads shows as a hang, so
+and returns its 128 outputs.  `run_sgd`, `run_minhash_hash`,
+`run_minhash_inter` and `run_ident` launch the entries of sgd.cu,
+minhash.cu and ident.cu on the inputs their wrappers take.  A race between threads shows as a hang, so
 callers run it under a timeout.  The emulated device has an H100's SM
 count and shared memory limits unless `sms`, `smem_block` and `smem_sm`
 say otherwise; a launch the card would refuse for its shared memory fails.
@@ -150,6 +152,104 @@ int main(int argc, char** argv) {
 """
 ROUND_GEOMETRY = ("threads", "ring", "seq_smem", "tables", "smem", "per_sm")
 
+# the split-stage and SGD kernels' entries: a header of ints, the inputs
+# in order, the outputs written back in order
+_READ = r"""
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+template <typename T>
+static std::vector<T> rd(FILE* f, size_t n) {
+    std::vector<T> v(n + 1);
+    if (std::fread(v.data(), sizeof(T), n, f) != n) std::exit(2);
+    return v;
+}
+template <typename T>
+static void wr(FILE* f, const std::vector<T>& v, size_t n) {
+    std::fwrite(v.data(), sizeof(T), n, f);
+}
+"""
+_SGD_MAIN = _READ + r"""
+int main(int argc, char** argv) {
+    FILE* f = std::fopen(argv[1], "rb");
+    auto hd = rd<int32_t>(f, 4);
+    const size_t T = hd[0], n = hd[1], B = hd[2];
+    float eta;
+    std::memcpy(&eta, &hd[3], 4);
+    auto x = rd<float>(f, n);
+    auto node = rd<int32_t>(f, T);
+    auto pos = rd<float>(f, T);
+    auto start = rd<int32_t>(f, T);
+    auto count = rd<int32_t>(f, T);
+    auto i1 = rd<int32_t>(f, B);
+    auto z = rd<int32_t>(f, B);
+    auto sgn = rd<int8_t>(f, B);
+    std::fclose(f);
+    const int rc = sgd_iter_launch(x.data(), node.data(), pos.data(),
+                                   start.data(), count.data(), i1.data(),
+                                   z.data(), sgn.data(), eta, (int)B, nullptr);
+    f = std::fopen(argv[2], "wb");
+    wr(f, x, n);
+    std::fclose(f);
+    return rc;
+}
+"""
+_MINHASH_MAIN = _READ + r"""
+int main(int argc, char** argv) {
+    FILE* f = std::fopen(argv[1], "rb");
+    auto hd = rd<int32_t>(f, 5);
+    const int mode = hd[0], B = hd[1], L = hd[2], k = hd[3], P = hd[4];
+    int rc = 1;
+    if (mode == 0) {
+        auto codes = rd<int8_t>(f, (size_t)B * L);
+        auto lens = rd<int32_t>(f, B);
+        std::fclose(f);
+        std::vector<int32_t> h((size_t)B * L, 7);
+        rc = minhash_hash_launch(codes.data(), lens.data(), h.data(), B, L, k,
+                                 nullptr);
+        f = std::fopen(argv[2], "wb");
+        wr(f, h, h.size());
+    } else {
+        auto hs = rd<int32_t>(f, (size_t)B * L);
+        auto counts = rd<int32_t>(f, B);
+        auto pa = rd<int32_t>(f, P);
+        auto pb = rd<int32_t>(f, P);
+        std::fclose(f);
+        std::vector<int32_t> inter(P, 7);
+        rc = minhash_inter_launch(hs.data(), counts.data(), pa.data(),
+                                  pb.data(), inter.data(), L, P, nullptr);
+        f = std::fopen(argv[2], "wb");
+        wr(f, inter, inter.size());
+    }
+    std::fclose(f);
+    return rc;
+}
+"""
+_IDENT_MAIN = _READ + r"""
+int main(int argc, char** argv) {
+    FILE* f = std::fopen(argv[1], "rb");
+    auto hd = rd<int32_t>(f, 8);
+    const int P = hd[0], na = hd[1], nb = hd[2], band = hd[3], X = hd[4],
+              O = hd[5], E = hd[6];
+    auto a = rd<uint8_t>(f, na);
+    auto aoff = rd<long long>(f, P);
+    auto la = rd<int32_t>(f, P);
+    auto b = rd<uint8_t>(f, nb);
+    auto boff = rd<long long>(f, P);
+    auto lb = rd<int32_t>(f, P);
+    std::fclose(f);
+    std::vector<int32_t> out((size_t)P * 4, 7);
+    const int rc = ident_launch(a.data(), aoff.data(), la.data(), b.data(),
+                                boff.data(), lb.data(), out.data(), P, band,
+                                X, O, E, nullptr);
+    f = std::fopen(argv[2], "wb");
+    wr(f, out, out.size());
+    std::fclose(f);
+    return rc;
+}
+"""
+_MAINS = {"sgd": _SGD_MAIN, "minhash": _MINHASH_MAIN, "ident": _IDENT_MAIN}
+
 
 def _rewrite(src: str) -> str:
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
@@ -166,7 +266,9 @@ def build(name: str, workdir: str) -> str:
         f.write(f'#include "{os.path.join(_HERE, "cuda_emu.h")}"\n')
     with open(os.path.join(CSRC, f"{name}.cu")) as f:
         src = _rewrite(f.read())
-    if name == "probes":
+    if name in _MAINS:
+        main = _MAINS[name]
+    elif name == "probes":
         main = _PROBE_MAIN
     elif name == "poa_round":
         main = _ROUND_MAIN
@@ -183,25 +285,15 @@ def build(name: str, workdir: str) -> str:
         f.write(src + main)
     exe = os.path.join(workdir, f"{name}_emu")
     subprocess.run([os.environ.get("CXX", "g++"), "-std=c++20", "-O1",
-                    "-fno-strict-aliasing", "-pthread", "-w", "-I", workdir,
+                    "-fno-strict-aliasing", "-ffp-contract=off", "-pthread", "-w", "-I", workdir,
                     "-I", CSRC, "-o", exe, cpp], check=True,
                    capture_output=True, text=True, timeout=300)
     return exe
 
 
 def _launch(exe: str, header: list, inputs, timeout: float) -> np.ndarray:
-    d = os.path.dirname(exe)
-    inp, out = os.path.join(d, "in.bin"), os.path.join(d, "out.bin")
-    with open(inp, "wb") as f:
-        f.write(np.array(header, np.int32).tobytes())
-        for t in inputs:
-            f.write(t.contiguous().numpy().tobytes())
-    res = subprocess.run([exe, inp, out], capture_output=True, text=True,
-                         timeout=timeout)
-    if res.returncode != 0:
-        raise RuntimeError(f"emulated launch failed: rc {res.returncode} "
-                           f"{res.stderr[-400:]}")
-    return np.fromfile(out, np.int32)
+    return np.frombuffer(_run_raw(exe, header, inputs, timeout),
+                         np.int32).copy()
 
 
 def run_geometry(exe: str, seqs, slen, nseq, params, caps, words: int,
@@ -273,3 +365,57 @@ def run_probe(exe: str, family: str, args: tuple, n: int, sz: int = 1,
     raw = _launch(exe, [PROBE_FAMILIES.index(family), *a, n, sz, x.numel()],
                   (x.to(torch.int32),), timeout)
     return torch.from_numpy(raw.copy())
+
+
+def _run_raw(exe: str, header: list, inputs, timeout: float) -> bytes:
+    d = os.path.dirname(exe)
+    inp, out = os.path.join(d, "in.bin"), os.path.join(d, "out.bin")
+    with open(inp, "wb") as f:
+        f.write(np.array(header, np.int32).tobytes())
+        for t in inputs:
+            f.write(t.contiguous().numpy().tobytes())
+    res = subprocess.run([exe, inp, out], capture_output=True, text=True,
+                         timeout=timeout)
+    if res.returncode != 0:
+        raise RuntimeError(f"emulated launch failed: rc {res.returncode} "
+                           f"{res.stderr[-400:]}")
+    with open(out, "rb") as f:
+        return f.read()
+
+
+def run_sgd(exe: str, x, i1, z, sgn, node, pos, start, count, eta: float,
+            timeout: float = 300.0) -> torch.Tensor:
+    """sgd.cu's sgd_iter_launch on ops/sgd.py:sgd_iter's CPU inputs;
+    returns the updated x (a new tensor)."""
+    eta_bits = int(np.array([eta], np.float32).view(np.int32)[0])
+    raw = _run_raw(exe, [node.numel(), x.numel(), i1.numel(), eta_bits],
+                   (x, node, pos, start, count, i1, z, sgn), timeout)
+    return torch.from_numpy(np.frombuffer(raw, np.float32).copy())
+
+
+def run_minhash_hash(exe: str, codes, lens, k: int,
+                     timeout: float = 120.0) -> torch.Tensor:
+    """minhash.cu's minhash_hash_launch; returns h (B, L) int32."""
+    B, L = codes.shape
+    raw = _run_raw(exe, [0, B, L, k, 0], (codes, lens), timeout)
+    return torch.from_numpy(np.frombuffer(raw, np.int32).reshape(B, L).copy())
+
+
+def run_minhash_inter(exe: str, hs, counts, pa, pb,
+                      timeout: float = 120.0) -> torch.Tensor:
+    """minhash.cu's minhash_inter_launch; returns inter (P,) int32."""
+    B, H = hs.shape
+    raw = _run_raw(exe, [1, B, H, 0, pa.numel()], (hs, counts, pa, pb),
+                   timeout)
+    return torch.from_numpy(np.frombuffer(raw, np.int32).copy())
+
+
+def run_ident(exe: str, a, aoff, la, b, boff, lb, band: int = 128,
+              mismatch: int = 7, gap_open: int = 11, gap_ext: int = 1,
+              timeout: float = 300.0) -> torch.Tensor:
+    """ident.cu's ident_launch on ops/ident_cuda.pack_pairs' tensors;
+    returns (P, 4) int32."""
+    P = la.numel()
+    raw = _run_raw(exe, [P, a.numel(), b.numel(), band, mismatch, gap_open,
+                         gap_ext, 0], (a, aoff, la, b, boff, lb), timeout)
+    return torch.from_numpy(np.frombuffer(raw, np.int32).reshape(P, 4).copy())

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the GPU: each kernel (poa_win, poa_round,
 poa_code and poa_stacked at every profiling stage, the four probe
-families of csrc/probes.cu) against its plain PyTorch version (exact
-equality, all outputs are integers) and each GPU engine's slice end to end
+families of csrc/probes.cu, sgd.cu, minhash.cu's two entries and
+ident.cu) against its plain PyTorch version (exact equality: the POA,
+probe and split outputs are integers, and sgd.cu sums in the plain
+version's order) and each GPU engine's slice end to end
 against the native engine's bytes.  Every test needs an NVIDIA GPU and
 skips without one.  Nothing here imports jax, so on a GPU machine without
 it: python -m pytest --noconftest -m cuda tests/test_torch_cuda.py"""
@@ -254,3 +256,61 @@ def test_round_slice_on_gpu_matches_native_bytes(cuda_device, tmp_path):
     for ext in ("gfa", "maf"):
         assert _sha(tmp_path / f"port.{ext}") == \
             _sha(tmp_path / f"native.{ext}")
+
+
+def test_sgd_kernel_matches_plain_version(cuda_device, tmp_path):
+    """csrc/sgd.cu against sgd_reference on the card, two iterations of
+    draws from one generator: x bit-identical."""
+    from smoothxg_tpu_torch.io.gfa import read_gfa
+    from smoothxg_tpu_torch.ops import sgd
+    g = read_gfa(write_pangenome(str(tmp_path / "in.gfa"), haplotypes=8,
+                                 length=20_000, seed=5))
+    prob = sgd.sgd_problem(g)
+    arr = prob.tensors(cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    x = torch.from_numpy(prob.x0.astype(np.float32)).to(cuda_device)
+    xk = x.clone()
+    before = sgd.sgd_iter.launches
+    for eta, cap in zip(prob.etas(2), (prob.zipf_space, 1000)):
+        ins = (*sgd.sgd_draws(gen, prob.T, prob.B_pad, arr["cdf"], cap),
+               arr["node"], arr["pos"], arr["start"], arr["count"],
+               float(eta))
+        sgd.sgd_iter(xk, *ins)
+        sgd.sgd_reference(x, *ins)
+        assert torch.equal(xk, x)
+    assert sgd.sgd_iter.launches == before + 2
+
+
+def test_split_kernels_match_plain_versions(cuda_device):
+    """csrc/minhash.cu's two entries and csrc/ident.cu against their plain
+    versions on the card (exact), and the distances and identities of
+    their classes against the numpy mirrors."""
+    from smoothxg_tpu_torch.ops import ident_cuda as ic
+    from smoothxg_tpu_torch.ops import minhash_cuda as mc
+    rng = np.random.default_rng(3)
+    base = "".join("ACGT"[i] for i in rng.integers(0, 4, 900))
+    seqs = [base[i:] + base[:i] for i in range(0, 300, 20)]
+    seqs += [mc.SENTINEL_KMER + base, "ACGT" * 30, ""]
+    codes, lens = (torch.from_numpy(a).to(cuda_device)
+                   for a in mc.encode_batch(seqs))
+    h = mc.minhash_hash(codes, lens, 16)
+    assert torch.equal(h, mc.minhash_hash_reference(codes, lens, 16))
+    hs, counts = mc.sorted_sets(h)
+    ii, jj = np.triu_indices(len(seqs), 1)
+    pa = torch.from_numpy(ii.astype(np.int32)).to(cuda_device)
+    pb = torch.from_numpy(jj.astype(np.int32)).to(cuda_device)
+    assert torch.equal(mc.minhash_inter(hs, counts, pa, pb),
+                       mc.minhash_inter_reference(hs, counts, pa, pb))
+    assert np.array_equal(
+        mc.DeviceMinHash(16, device=cuda_device).distance_matrix(seqs),
+        mc.host_distance_matrix(seqs, 16))
+    pairs = [(s, seqs[0]) for s in seqs] + [(base, base[:400] + base[500:])]
+    packed = ic.pack_pairs([ic._prep_pair(a, b) for a, b in pairs])
+    ins = [packed[n].to(cuda_device)
+           for n in ("a", "aoff", "la", "b", "boff", "lb")]
+    for band in (128, 32):
+        assert torch.equal(ic.ident_counts(*ins, band),
+                           ic.ident_counts_reference(*ins, band))
+    assert ic.DeviceBandedIdentity(device=cuda_device).identities(pairs) == \
+        [ic.host_banded_identity(a, b) for a, b in pairs]

@@ -120,8 +120,7 @@ def test_api_default_engine_needs_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--engine", "jax"], ["--dist-size", "2"],
-    ["--device-split-minhash"], ["--device-split-wfa"]])
+    ["--engine", "jax"], ["--dist-size", "2"]])
 def test_cli_refuses_engines_not_yet_ported(tmp_path, capsys, flags):
     """Routes that would need the JAX package's device code exit 1 with a
     "not yet ported" message instead of importing jax."""
@@ -132,6 +131,98 @@ def test_cli_refuses_engines_not_yet_ported(tmp_path, capsys, flags):
     assert rc == 1
     assert "not yet ported" in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "o.gfa")
+
+
+# the split stage's settings of tests/test_divergent.py (-I 0.95, -E 0.9,
+# -d 2), with mash clustering on for the MinHash route and off for the
+# alignment-identity route
+SPLIT_KW = dict(max_poa_length=1400, block_group_identity=0.95,
+                block_group_est_identity=0.9,
+                min_dedup_depth_for_block_splitting=2)
+MASH_KW = dict(min_dedup_depth_for_mash_clustering=2,
+               min_length_mash_based_clustering=100)
+
+
+@pytest.fixture(scope="module")
+def divergent(tmp_path_factory):
+    """The divergent fixture (the port's copy of make_divergent_gfa) over
+    the seeded generator's 6 x 10 kb pangenome, prepped and indexed by
+    each package; and the blocks: the first two and the first four that
+    the host alignment-identity route splits."""
+    from smoothxg_tpu.graph.index import FlatIndex as JaxFlatIndex
+    from smoothxg_tpu.io.gfa import read_gfa as jax_read_gfa
+    from smoothxg_tpu.pipeline.prep import prep as jax_prep
+    from smoothxg_tpu_torch.graph.index import FlatIndex
+    from smoothxg_tpu_torch.io.synth import make_divergent_gfa
+    from smoothxg_tpu_torch.pipeline.blocks import Blockset, smoothable_blocks
+    from smoothxg_tpu_torch.pipeline.breaks import break_blocks
+    from smoothxg_tpu_torch.pipeline.prep import prep
+    d = tmp_path_factory.mktemp("divergent")
+    src = write_pangenome(str(d / "a1.gfa"), haplotypes=6, length=10_000,
+                          seed=11)
+    gfa = str(d / "div.gfa")
+    make_divergent_gfa(src, gfa, tiles=2, seed=7)
+    idx = FlatIndex(prep(read_gfa(gfa), 100, device="cpu"))
+    jidx = JaxFlatIndex(jax_prep(jax_read_gfa(gfa), 100))
+    blocks = list(smoothable_blocks(idx, 700 * 12, 700, 5000, 5000))
+    pick = [0, 1]
+    for n, b in enumerate(blocks):
+        one = Blockset()
+        one.add_block(b)
+        if len(pick) < 6 and len(break_blocks(idx, one, **SPLIT_KW)) > 1:
+            pick.append(n)
+    return idx, jidx, pick
+
+
+def _partition(out):
+    return out.break_stats, [tuple((pr.pid, pr.begin, pr.end)
+                                   for pr in b.path_ranges) for b in out]
+
+
+@pytest.mark.parametrize("flag,kw", [("device_minhash", MASH_KW),
+                                     ("device_wfa", {})])
+def test_split_device_routes_on_cpu_match_the_jax_package(divergent, flag,
+                                                          kw):
+    """--device-split-minhash / --device-split-wfa through the API on a CPU
+    run (device="cpu": the plain versions of csrc/minhash.cu and
+    csrc/ident.cu) give the same blocks as the JAX package's
+    break_blocks with the same flag, and split some."""
+    from smoothxg_tpu.pipeline.blocks import Blockset as JaxBlockset
+    from smoothxg_tpu.pipeline.blocks import \
+        smoothable_blocks as jax_smoothable_blocks
+    from smoothxg_tpu.pipeline.breaks import break_blocks as jax_break_blocks
+    from smoothxg_tpu_torch.pipeline.blocks import Blockset, smoothable_blocks
+    from smoothxg_tpu_torch.pipeline.breaks import break_blocks
+    idx, jidx, pick = divergent
+    sets = []
+    for ix, make, find, brk, extra in (
+            (idx, Blockset, smoothable_blocks, break_blocks,
+             {"device": "cpu"}),
+            (jidx, JaxBlockset, jax_smoothable_blocks, jax_break_blocks,
+             {})):
+        bs = make()
+        for n, b in enumerate(find(ix, 700 * 12, 700, 5000, 5000)):
+            if n in pick:
+                bs.add_block(b)
+        sets.append(_partition(brk(ix, bs, **SPLIT_KW, **kw, **{flag: True},
+                                   **extra)))
+    assert sets[0] == sets[1]
+    assert sets[0][0]["split"] > 0
+
+
+def test_split_device_routes_need_cuda_on_a_gpu_run(divergent, monkeypatch):
+    """On a GPU run (the default device) the split routes take their
+    kernels: without CUDA they raise "CUDA required", never the host."""
+    import torch
+    from smoothxg_tpu_torch.pipeline.blocks import smoothable_blocks
+    from smoothxg_tpu_torch.pipeline.breaks import break_blocks
+    idx, _, _ = divergent
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for flag, kw in (("device_minhash", MASH_KW), ("device_wfa", {})):
+        with pytest.raises(RuntimeError, match="CUDA required"):
+            break_blocks(idx, smoothable_blocks(idx, 700 * 12, 700, 5000,
+                                                5000),
+                         **SPLIT_KW, **kw, **{flag: True})
 
 
 GUARD = """
