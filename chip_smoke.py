@@ -66,26 +66,30 @@ result:
      fill / traceback / threading split (tools/profile_fused.py).
  14. sgd at full size: the seeded 64 x 5 Mb generator graph (6.29M path
      steps) prepped by pipeline/prep.py:prep with the default "auto" SGD
-     route, which takes csrc/sgd.cu (100 launches); the kernel bit-identical
-     to its plain version on one iteration's draws; 100 iterations timed
-     by CUDA events and run again through the route: the same x bytes;
+     route, which takes csrc/sgd.cu (100 plan and 100 chain launches); on
+     one iteration's draws the plan kernel bit-identical to its plain
+     version and the chain kernel's x to the iteration's plain version,
+     each timed on its own line; 100 iterations timed by CUDA events (plan
+     and chain apart) and run again through the route: the same x bytes;
      rank-jump of the card's order <= 1.2 x the native backend's on the
      16 x 1 Mb graph in a shuffled node order (native takes minutes on the
      64 x 5 Mb graph: tools/time_sgd.py measures it there).
  15. split kernels: minhash_hash + minhash_inter (csrc/minhash.cu) on 200
      seeded blocks (the sentinel 16-mer in every fifth) and ident
      (csrc/ident.cu) on 240 seeded pairs (off-band, lb = 0, bailed) equal
-     to their plain versions and the numpy mirrors, and on two pairs past
-     46,340 bp equal to the mirror; each timed on a 512-sequence block
-     (the torch.sort share of the MinHash launch) or 2,048 pairs.
+     to their plain versions and the numpy mirrors at band 128, and to the
+     plain version at band 32 (both the warp kernel) and 288 (the block
+     kernel), and on two pairs past 46,340 bp equal to the mirror; each
+     timed on a 512-sequence block (the torch.sort share of the MinHash
+     launch) or 2,048 pairs (bands 128, 32 and 288).
  16. main paths: (a) the CLI's default engine with -U 200 on phase 4's
-     input (one POA iteration, -l 700), twice: the same GFA and MAF bytes, exactly sgd and poa_win
-     launched; (b) the CLI with --engine native and both split device
+     input (one POA iteration, -l 700), twice: the same GFA and MAF
+     bytes, exactly sgd, sgd_plan and poa_win launched; (b) the CLI with --engine native and both split device
      routes on the divergent fixture (io/synth.make_divergent_gfa over the
      generator's 8 x 20 kb pangenome): blocks split, exactly the split
      kernels launched, and the bytes of run_smoothing(cfg, device="cpu").
 Every main path (4, 7, 9, 11, the probes' phase 12, 14's prep and 16)
-runs with all twelve wrappers' launch counts set to 0 just before it and
+runs with all thirteen wrappers' launch counts set to 0 just before it and
 read just after: its own kernels must have launched and no other.  Then the
 kernels' JSON line, the nvidia-smi line and the result line.  No module
 of jax or of the JAX package may be loaded in this process.
@@ -208,7 +212,7 @@ def win_dp_work(seqs, paths) -> tuple:
 PROBES = ("probe_scalar", "probe_row", "probe_tile", "probe_step")
 SPLIT = ("minhash_hash", "minhash_inter", "ident")
 KERNELS = (("poa_win", "poa_round", "poa_code", "poa_stacked") + PROBES
-           + ("sgd",) + SPLIT)
+           + ("sgd", "sgd_plan") + SPLIT)
 
 
 def wrappers() -> dict:
@@ -220,11 +224,12 @@ def wrappers() -> dict:
     from smoothxg_tpu_torch.ops.poa_round import poa_round
     from smoothxg_tpu_torch.ops.poa_stacked import poa_stacked
     from smoothxg_tpu_torch.ops.poa_win import poa_win
-    from smoothxg_tpu_torch.ops.sgd import sgd_iter
+    from smoothxg_tpu_torch.ops.sgd import sgd_iter, sgd_plan
     from smoothxg_tpu_torch.tools._probe import WRAPPERS
     return {"poa_win": poa_win, "poa_round": poa_round,
             "poa_code": poa_code, "poa_stacked": poa_stacked, **WRAPPERS,
-            "sgd": sgd_iter, "minhash_hash": minhash_hash,
+            "sgd": sgd_iter, "sgd_plan": sgd_plan,
+            "minhash_hash": minhash_hash,
             "minhash_inter": minhash_inter, "ident": ident_counts}
 
 
@@ -950,7 +955,9 @@ def build_summary(log: str) -> str:
     kernels' stage-0 instantiations with the graph tables in device and in
     shared memory first, then every stage's count; every instantiation of
     poa_win and poa_round), each probe family's register range, and the
-    SGD and split-stage kernels' registers, stack and spills."""
+    SGD and split-stage kernels' registers, stack and spills (each column
+    count of ident's warp kernel)."""
+    import re
     regs = ptxas_registers(log)
     inst = kernel_registers(log)
     parts = []
@@ -972,11 +979,17 @@ def build_summary(log: str) -> str:
         parts.append(f"{fam} kernels: {len(own)} instantiations, "
                      f"{min(own, default=-1)}-{max(own, default=-1)} "
                      f"registers")
-    for name in ("sgd_iter", "minhash_hash", "minhash_inter", "ident"):
+    for name in ("sgd_plan", "sgd_chain", "minhash_hash", "minhash_inter",
+                 "ident_block"):
         mine = [r for e, r in regs.items() if f"{name}_kernel" in e]
         parts.append(f"{name}_kernel " + (
             f"{used(mine[0])} registers, {spilled(mine[0])}" if mine
             else "ptxas: no report"))
+    warp = sorted((int(m[1]), r) for e, r in regs.items()
+                  for m in [re.search(r"ident_warp_kernelILi(\d+)E", e)] if m)
+    parts.append("ident_warp_kernel " + ("; ".join(
+        f"<{c}>: {used(r)} registers, {spilled(r)}" for c, r in warp)
+        or "ptxas: no report"))
     return "; ".join(parts)
 
 
@@ -1029,17 +1042,21 @@ def cuda_ms(torch, fn, reps: int = 3) -> float:
 
 def sgd_phase(torch, dev, graph=SGD_GRAPH, quality=SGD_QUALITY):
     """Phase 14: the 64 x 5 Mb generator graph prepped with the default
-    "auto" SGD route (the kernel, counted); the kernel against its plain
-    version on one iteration's draws; 100 iterations timed and then run
-    again through the route (the same bytes); rank-jump of the card's
-    order against the native backend's on 16 x 1 Mb in a shuffled node
-    order.  Returns sgd's JSON entry fields."""
+    "auto" SGD route (both kernels, counted); on one iteration's draws the
+    plan kernel against its plain version and the chain kernel's x against
+    the iteration's plain version, each timed; 100 iterations timed and
+    then run again through the route (the same bytes); rank-jump of the
+    card's order against the native backend's on 16 x 1 Mb in a shuffled
+    node order.  Returns sgd's (the chain kernel's) and sgd_plan's JSON
+    entry fields."""
     import numpy as np
     from smoothxg_tpu_torch.io.gfa import read_gfa
     from smoothxg_tpu_torch.ops import sgd
     from smoothxg_tpu_torch.pipeline.prep import prep
     from smoothxg_tpu_torch.testing.synth import write_pangenome
-    from smoothxg_tpu_torch.tools.time_sgd import (chain_floor_ms, rank_jump,
+    from smoothxg_tpu_torch.tools.time_sgd import (chain_bound,
+                                                   chain_floor_ms,
+                                                   plan_bound, rank_jump,
                                                    sgd_bound, shuffled,
                                                    time_kernel)
     t0 = time.perf_counter()
@@ -1063,7 +1080,14 @@ def sgd_phase(torch, dev, graph=SGD_GRAPH, quality=SGD_QUALITY):
     ins = (*draws, arr["node"], arr["pos"], arr["start"], arr["count"],
            float(prob.etas(100)[0]))
     x0 = torch.from_numpy(prob.x0.astype(np.float32)).to(dev)
-    xk = sgd.sgd_iter(x0.clone(), *ins)
+    plan = sgd.sgd_plan(*ins)
+    plan_p = sgd.sgd_plan_reference(*ins)
+    plan_err = int((plan.long() - plan_p.long()).abs().max())
+    if not torch.equal(plan, plan_p):
+        fail(f"sgd plan kernel != plain version (max abs err {plan_err})")
+    runs = plan[4 * prob.B_pad:6 * prob.B_pad]
+    runs = runs[runs < 0] >> 11 & 0xfff       # the heads' run lengths
+    xk = sgd.sgd_iter(x0.clone(), *ins, plan=plan)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     xp = sgd.sgd_reference(x0.clone(), *ins)
@@ -1073,20 +1097,33 @@ def sgd_phase(torch, dev, graph=SGD_GRAPH, quality=SGD_QUALITY):
     if not torch.equal(xk, xp):
         fail(f"sgd kernel != plain version on one iteration (max abs err "
              f"{err})")
-    say(f"sgd one iteration: kernel == plain version bit for bit on "
-        f"{prob.B_pad} draws (max abs err {err}, tolerance 0); plain "
-        f"version on the card {plain_ms:.1f} ms")
-    del xk, xp
+    plan_ms = cuda_ms(torch, lambda: sgd.sgd_plan(*ins))
+    plan_plain = cuda_ms(torch, lambda: sgd.sgd_plan_reference(*ins), reps=1)
+    xt = x0.clone()
+    chain_ms = cuda_ms(torch, lambda: sgd.sgd_iter(xt, *ins, plan=plan))
+    say(f"sgd plan kernel: == plain version bit for bit on {prob.B_pad} "
+        f"draws ({plan.numel()} words, max abs err {plan_err}, tolerance 0;"
+        f" runs of 1 / 2 / 3+ pairs: {int((runs == 1).sum())} / "
+        f"{int((runs == 2).sum())} / {int((runs > 2).sum())}, longest "
+        f"{int(runs.max())}); {plan_ms:.3f} ms, plain version on the card "
+        f"{plan_plain:.1f} ms, bound {plan_bound(prob)[0]:.4f} ms by "
+        f"{plan_bound(prob)[1]}")
+    say(f"sgd chain kernel: x == the iteration's plain version bit for bit "
+        f"(max abs err {err}, tolerance 0); {chain_ms:.3f} ms on that plan, "
+        f"plain version of the iteration on the card {plain_ms:.1f} ms, "
+        f"bound {chain_bound(prob)[0]:.4f} ms by {chain_bound(prob)[1]}, "
+        f"chain floor {chain_floor_ms(prob, 1):.3f} ms")
+    del xk, xp, xt, plan, plan_p, runs
     t0 = time.perf_counter()
-    g2, launches = drive(lambda: prep(g, 100, device=dev), "sgd")
+    g2, launches = drive(lambda: prep(g, 100, device=dev), ("sgd", "sgd_plan"))
     prep_s = time.perf_counter() - t0
-    if launches != 100:
-        fail(f"prep launched the sgd kernel {launches} times, not 100")
+    if launches != {"sgd": 100, "sgd_plan": 100}:
+        fail(f"prep launched the sgd kernels {launches} times, not 100 each")
     say(f"sgd main path: prep (default auto route) {prep_s:.2f} s wall, "
-        f"{g2.node_count()} nodes after chop, sgd launches {launches}")
+        f"{g2.node_count()} nodes after chop, launches {launches}")
     del g2
     t0 = time.perf_counter()
-    x1, iters = time_kernel(torch, prob, dev)
+    x1, plans, chains = time_kernel(torch, prob, dev)
     card_s = time.perf_counter() - t0
     x2 = sgd.sgd_solve(prob, device=dev)
     digest = [hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
@@ -1094,13 +1131,16 @@ def sgd_phase(torch, dev, graph=SGD_GRAPH, quality=SGD_QUALITY):
     if digest[0] != digest[1]:
         fail(f"sgd: two full runs differ: {digest}")
     bound, by = sgd_bound(prob)
-    ms = sum(iters) / len(iters)
+    ms = sum(chains) / len(chains)
     say(f"sgd 100 iterations: {card_s:.3f} s wall (draws + kernels), "
-        f"kernel {sum(iters):.1f} ms ({ms:.3f} ms an iteration, "
-        f"{min(iters):.3f}-{max(iters):.3f}); bound {bound:.4f} ms an "
-        f"iteration by {by} (inputs once), chain floor "
-        f"{chain_floor_ms(prob):.1f} ms for 100 (one 0.5 us L2 round trip "
-        f"a minibatch); two full runs give the same x bytes ({digest[0]})")
+        f"kernels {sum(plans) + sum(chains):.1f} ms: plan {sum(plans):.1f} "
+        f"ms ({sum(plans) / len(plans):.3f} an iteration, "
+        f"{min(plans):.3f}-{max(plans):.3f}), chain {sum(chains):.1f} ms "
+        f"({ms:.3f} an iteration, {min(chains):.3f}-{max(chains):.3f}); the "
+        f"iteration's bound {bound:.4f} ms by {by} (inputs once), chain "
+        f"floor {chain_floor_ms(prob):.1f} ms for 100 (one 0.5 us L2 round "
+        f"trip a minibatch); two full runs give the same x bytes "
+        f"({digest[0]})")
     del x1, x2, arr, draws, ins, x0
     torch.cuda.empty_cache()
     gq = write_pangenome(os.path.join(SMOKE_DIR, "sgd_quality.gfa"),
@@ -1118,9 +1158,15 @@ def sgd_phase(torch, dev, graph=SGD_GRAPH, quality=SGD_QUALITY):
         f"(bound: card <= 1.2 x native)")
     if rc > 1.2 * rn:
         fail(f"sgd: the card's rank-jump {rc:.3f} > 1.2 x native's {rn:.3f}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "launches": launches}
+    pb, cb = plan_bound(prob), chain_bound(prob)
+    return {"sgd": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": cb[0], "bound_by": cb[1], "library_ms": None,
+                    "launches": launches["sgd"]},
+            "sgd_plan": {"max_abs_err": plan_err,
+                         "ms": sum(plans) / len(plans),
+                         "plain_ms": plan_plain, "bound_ms": pb[0],
+                         "bound_by": pb[1], "library_ms": None,
+                         "launches": launches["sgd_plan"]}}
 
 
 def _seq(rng, n: int) -> str:
@@ -1237,10 +1283,15 @@ def split_phase(torch, dev, clock_mhz, n_blocks=200, n_pairs=240,
     if idents != want:
         fail("ident identities != the numpy mirror's")
     bailed = sum(1 for (sc, *_), m in zip(mirror, ms) if sc >= m)
+    for band in (32, 288):              # the warp kernel, the block kernel
+        if not torch.equal(ic.ident_counts(*ins, band),
+                           ic.ident_counts_reference(*ins, band)):
+            fail(f"ident != plain version at band {band}")
     say(f"ident: {n_pairs} pairs (off-band, unrelated, lb = 0, {bailed} "
         f"bailed by max_score) equal to the plain version and the numpy "
-        f"mirror, counts and identities (tolerance 0), "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"mirror, counts and identities (tolerance 0), at band 128 and "
+        f"equal to the plain version at 32 (warp kernel) and 288 (block "
+        f"kernel), {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     longs = []
     for L in long_pairs:
@@ -1309,12 +1360,15 @@ def split_phase(torch, dev, clock_mhz, n_blocks=200, n_pairs=240,
     ident_ms = cuda_ms(torch, lambda: ic.ident_counts(*ins))
     ident_plain = cuda_ms(torch, lambda: ic.ident_counts_reference(*ins),
                           reps=1)
+    other = {band: cuda_ms(torch, lambda: ic.ident_counts(*ins, band))
+             for band in (32, 288)}
     cells = int(ins[2].long().sum()) * 128
     ident_bound = int32_bound_ms(cells * OPS_IDENT_CELL, clock_mhz)
     say(f"ident timing, {len(pairs)} pairs of ~1.4 kb (band 128): kernel "
         f"{ident_ms:.3f} ms, plain {ident_plain:.1f} ms, bound "
         f"{ident_bound:.4f} ms by operations ({cells} cells x "
-        f"{OPS_IDENT_CELL} int32 ops)")
+        f"{OPS_IDENT_CELL} int32 ops); band 32 (warp kernel) "
+        f"{other[32]:.3f} ms, band 288 (block kernel) {other[288]:.3f} ms")
     return {
         "minhash_hash": {"max_abs_err": 0, "ms": hash_ms,
                          "plain_ms": hash_plain, "bound_ms": hash_bound,
@@ -1332,9 +1386,9 @@ def split_phase(torch, dev, clock_mhz, n_blocks=200, n_pairs=240,
 
 def sgd_main_path(gfa: str) -> int:
     """Phase 16 (a): the CLI's default engine with -U 200 (B = steps x 200
-    >= 5M: the SGD kernel in prep) and one POA iteration, twice: exit 0 (lace validation), the
-    same GFA and MAF bytes, exactly sgd and poa_win launched.  Returns
-    sgd's launches of the first run."""
+    >= 5M: the SGD kernels in prep) and one POA iteration, twice: exit 0
+    (lace validation), the same GFA and MAF bytes, exactly sgd, sgd_plan
+    and poa_win launched.  Returns sgd's launches of the first run."""
     from smoothxg_tpu_torch import cli
     from smoothxg_tpu_torch.io.gfa import read_gfa
     from smoothxg_tpu_torch.ops.sgd import SGD_DEVICE_MIN_TERMS, sgd_problem
@@ -1350,7 +1404,8 @@ def sgd_main_path(gfa: str) -> int:
         with contextlib.redirect_stderr(log):
             (rc, _), launches = drive(
                 lambda: cli.run(["-g", gfa, "-o", out, "-m", maf,
-                                 *SGD_MAIN_FLAGS]), ("sgd", "poa_win"))
+                                 *SGD_MAIN_FLAGS]),
+                ("sgd", "sgd_plan", "poa_win"))
         wall = time.perf_counter() - t0
         if rc != 0:
             fail(f"the -U 200 main path exited {rc}")
@@ -1602,8 +1657,9 @@ def main() -> None:
 
     # phases 14-16: the SGD layout at full size, the split stage's kernels,
     # and the main paths through them
-    entries["sgd"] = sgd_phase(torch, dev)
-    launches["sgd"] = entries["sgd"].pop("launches")
+    entries.update(sgd_phase(torch, dev))
+    for name in ("sgd", "sgd_plan"):
+        launches[name] = entries[name].pop("launches")
     torch.cuda.empty_cache()
     entries.update(split_phase(torch, dev, clock_mhz))
     torch.cuda.empty_cache()
@@ -1621,10 +1677,12 @@ def main() -> None:
                 "poa_code": "smoothxg_tpu/ops/poa_pallas_fused.py:86",
                 "poa_stacked": "smoothxg_tpu/ops/poa_pallas_stacked.py:79",
                 "sgd": "smoothxg_tpu/ops/sgd.py:49",
+                "sgd_plan": "smoothxg_tpu/ops/sgd.py:49",
                 "minhash_hash": "smoothxg_tpu/ops/minhash_jax.py:107",
                 "minhash_inter": "smoothxg_tpu/ops/minhash_jax.py:139",
                 "ident": "smoothxg_tpu/ops/ident_jax.py:62"}
-    sources = {"minhash_hash": "minhash", "minhash_inter": "minhash"}
+    sources = {"minhash_hash": "minhash", "minhash_inter": "minhash",
+               "sgd_plan": "sgd"}
     kernels = []
     for n in KERNELS:
         if n in PROBE_FAMILIES:

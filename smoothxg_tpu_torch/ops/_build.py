@@ -177,12 +177,14 @@ def load() -> ctypes.CDLL:
                 getattr(lib, f"probe_{fam}_launch").restype = ci
             # the SGD layout and the split stage (csrc/sgd.cu, minhash.cu,
             # ident.cu)
-            lib.sgd_iter_launch.argtypes = [vp] * 8 + [ctypes.c_float, ci,
-                                                       vp]
+            lib.sgd_plan_launch.argtypes = [vp] * 7 + [ctypes.c_float, ci,
+                                                       vp, vp]
+            lib.sgd_chain_launch.argtypes = [vp, vp, ci, vp]
             lib.minhash_hash_launch.argtypes = [vp] * 3 + [ci] * 3 + [vp]
             lib.minhash_inter_launch.argtypes = [vp] * 5 + [ci] * 2 + [vp]
             lib.ident_launch.argtypes = [vp] * 7 + [ci] * 5 + [vp]
-            for fn in ("sgd_iter_launch", "minhash_hash_launch",
+            for fn in ("sgd_plan_launch", "sgd_chain_launch",
+                       "minhash_hash_launch",
                        "minhash_inter_launch", "ident_launch"):
                 getattr(lib, fn).restype = ci
             lib.poa_win_error_string.argtypes = [ci]

@@ -10,9 +10,10 @@ banded affine DP along the longer sequence that carries the count triple
 of the optimal path through the forward pass, with a fixed tie-break order
 (diagonal > in-row gap > cross-row gap; earlier opening first), so every
 route gives the same integers:
-  * `ident_counts` launches csrc/ident.cu (one thread block a pair, one
-    thread a band column) for CUDA tensors and runs its plain PyTorch
-    version, `ident_counts_reference`, for CPU tensors;
+  * `ident_counts` launches csrc/ident.cu (one warp a pair up to a band
+    of 256 columns, one thread block a pair and a thread a column above)
+    for CUDA tensors and runs its plain PyTorch version,
+    `ident_counts_reference`, for CPU tensors;
   * `host_banded_identity` is the numpy mirror, the parity oracle.
 The identity itself is computed on the host in float64 from the integer
 counts.  The window's first column, i * lb / la - band / 2, is computed in
@@ -176,7 +177,7 @@ def ident_counts(a, aoff, la, b, boff, lb, band: int = 128,
         raise ValueError(f"ident_counts: unsupported device {a.device}")
     if band % 32 or not 32 <= band <= 1024:
         raise ValueError(f"the CUDA kernel takes a band of 32-1024 columns "
-                         f"in steps of 32 (one thread a column): {band}")
+                         f"in steps of 32 (whole warps): {band}")
     P = la.numel()
     out = torch.empty((P, 4), dtype=torch.int32, device=a.device)
     from . import _build

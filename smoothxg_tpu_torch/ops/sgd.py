@@ -13,8 +13,9 @@ Routes (`path_sgd_order(device=...)`, named after the JAX package's):
   * "native": sequential updates on the host — the exact semantics the
     reference's Hogwild threads approximate;
   * "cuda": the batched route of smoothxg_tpu/ops/sgd.py:_compiled_run on
-    the card, one launch of the hand-written kernel csrc/sgd.cu an
-    iteration (`sgd_iter`); the JAX package's "default";
+    the card, two launches of the hand-written kernels of csrc/sgd.cu an
+    iteration (`sgd_plan`, then `sgd_iter`'s chain); the JAX package's
+    "default";
   * "cpu": the same batched route through its plain PyTorch version,
     `sgd_reference`, on the host (the JAX package's "cpu");
   * "auto": "native" below SGD_DEVICE_MIN_TERMS term updates an iteration,
@@ -266,14 +267,16 @@ def sgd_steps(prob: SGDProblem, iter_max: int = 100,
               cooling_start: float = 0.5, seed: int = 9399527,
               device: str | torch.device = "cuda"):
     """`sgd_solve`'s loop, one iteration at a time: draws an iteration's
-    terms, then yields the call that applies them (`sgd_iter`; it returns
-    x).  So a caller that times the call times the launch alone
+    terms, then yields the call that applies them (a partial of
+    `sgd_iter`, which plans and applies them; it returns x).  So a caller
+    that times the call times the launches alone, or makes the plan
+    itself from the partial's arguments and passes it as `plan=`
     (tools/time_sgd.py)."""
     from ..device import resolve
     if iter_max < 1:
         raise ValueError(f"iter_max must be at least 1: {iter_max}")
     dev = resolve(device, what=f"path SGD at {prob.B} term updates an "
-                  f"iteration takes its CUDA kernel (csrc/sgd.cu)",
+                  f"iteration takes its CUDA kernels (csrc/sgd.cu)",
                   instead="pass device='native' or 'cpu' for a host run")
     arr = prob.tensors(dev)
     x = torch.from_numpy(prob.x0.astype(np.float32)).to(dev)
@@ -303,10 +306,13 @@ def sgd_draws(gen: torch.Generator, T: int, B: int, cdf: torch.Tensor,
 
 
 def _check(x, i1, z, sgn, node, pos, start, count) -> None:
-    dev = x.device
-    want = ((x, torch.float32), (i1, torch.int32), (z, torch.int32),
-            (sgn, torch.int8), (node, torch.int32), (pos, torch.float32),
+    """x may be None (the plan takes no x)."""
+    dev = i1.device
+    want = ((i1, torch.int32), (z, torch.int32), (sgn, torch.int8),
+            (node, torch.int32), (pos, torch.float32),
             (start, torch.int32), (count, torch.int32))
+    if x is not None:
+        want = ((x, torch.float32),) + want
     for t, dt in want:
         if t.dtype != dt or t.device != dev or t.dim() != 1 \
                 or not t.is_contiguous():
@@ -322,26 +328,73 @@ def _check(x, i1, z, sgn, node, pos, start, count) -> None:
         raise ValueError("node, pos, start and count must have T steps")
 
 
+def plan_words(B: int) -> int:
+    """int32 words of an iteration's plan (csrc/sgd.cu): 4 a term (n1, n2,
+    d with ok as its sign, mu) and 2 a term (the run words of its two
+    pairs)."""
+    return 6 * B
+
+
+def sgd_plan(i1: torch.Tensor, z: torch.Tensor, sgn: torch.Tensor,
+             node: torch.Tensor, pos: torch.Tensor, start: torch.Tensor,
+             count: torch.Tensor, eta: float) -> torch.Tensor:
+    """The plan of one iteration's draws: what csrc/sgd.cu's chain needs
+    that does not depend on x (each term's nodes, d, mu and ok; each
+    pair's run word, its place in its minibatch's fold order).  CUDA tensors launch sgd_plan_kernel (and
+    raise on a launch error); CPU tensors run the plain version,
+    `sgd_plan_reference`.  (plan_words(B),) int32."""
+    dev = i1.device
+    _check(None, i1, z, sgn, node, pos, start, count)
+    if dev.type == "cpu":
+        return sgd_plan_reference(i1, z, sgn, node, pos, start, count, eta)
+    if dev.type != "cuda":
+        raise ValueError(f"sgd_plan: unsupported device {dev}")
+    from . import _build
+    lib = _build.load()
+    B = i1.numel()
+    plan = torch.empty(plan_words(B), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.sgd_plan_launch(
+            node.data_ptr(), pos.data_ptr(), start.data_ptr(),
+            count.data_ptr(), i1.data_ptr(), z.data_ptr(), sgn.data_ptr(),
+            ctypes.c_float(eta), B, plan.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sgd plan kernel launch failed: CUDA error {rc} "
+                           f"({lib.poa_win_error_string(rc).decode()})")
+    sgd_plan.launches += 1
+    return plan
+
+
+sgd_plan.launches = 0     # kernel launches made by this wrapper
+
+
 def sgd_iter(x: torch.Tensor, i1: torch.Tensor, z: torch.Tensor,
              sgn: torch.Tensor, node: torch.Tensor, pos: torch.Tensor,
              start: torch.Tensor, count: torch.Tensor,
-             eta: float) -> torch.Tensor:
+             eta: float, plan: torch.Tensor | None = None) -> torch.Tensor:
     """One iteration of len(i1) term updates applied to x in place.  CUDA
-    tensors launch csrc/sgd.cu (and raise on a launch error); CPU tensors
-    run the plain version, `sgd_reference`.  Returns x."""
+    tensors launch csrc/sgd.cu's chain kernel on `plan`, the `sgd_plan` of
+    these same draws (made here when it is None), and raise on a launch
+    error; CPU tensors run the plain version, `sgd_reference`, which needs
+    no plan.  Returns x."""
     _check(x, i1, z, sgn, node, pos, start, count)
     if x.device.type == "cpu":
         return sgd_reference(x, i1, z, sgn, node, pos, start, count, eta)
     if x.device.type != "cuda":
         raise ValueError(f"sgd_iter: unsupported device {x.device}")
+    if plan is None:
+        plan = sgd_plan(i1, z, sgn, node, pos, start, count, eta)
+    B = i1.numel()
+    if plan.dtype != torch.int32 or plan.device != x.device \
+            or plan.numel() != plan_words(B) or not plan.is_contiguous():
+        raise ValueError(f"sgd_iter wants sgd_plan's ({plan_words(B)},) "
+                         f"int32 plan on {x.device}")
     from . import _build
     lib = _build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = lib.sgd_iter_launch(
-            x.data_ptr(), node.data_ptr(), pos.data_ptr(), start.data_ptr(),
-            count.data_ptr(), i1.data_ptr(), z.data_ptr(), sgn.data_ptr(),
-            ctypes.c_float(eta), i1.numel(), stream)
+        rc = lib.sgd_chain_launch(x.data_ptr(), plan.data_ptr(), B, stream)
     if rc != 0:
         raise RuntimeError(f"sgd kernel launch failed: CUDA error {rc} "
                            f"({lib.poa_win_error_string(rc).decode()})")
@@ -349,7 +402,59 @@ def sgd_iter(x: torch.Tensor, i1: torch.Tensor, z: torch.Tensor,
     return x
 
 
-sgd_iter.launches = 0     # kernel launches made by this wrapper
+sgd_iter.launches = 0     # chain kernel launches made by this wrapper
+
+
+def sgd_plan_reference(i1: torch.Tensor, z: torch.Tensor, sgn: torch.Tensor,
+                       node: torch.Tensor, pos: torch.Tensor,
+                       start: torch.Tensor, count: torch.Tensor, eta: float,
+                       mb: int = MINIBATCH) -> torch.Tensor:
+    """Plain PyTorch version of csrc/sgd.cu's plan kernel, on any device:
+    the terms' nodes, d (negated where the term is not ok) and mu as
+    `sgd_reference` computes them, then each minibatch's pairs sorted by
+    (node, pair index) into runs of one node, and each pair's run word: a
+    head's 1 << 31 | its sorted position | its run's length << 11, any
+    other pair's sorted position | its head's pair index << 11.
+    Bit-identical to the kernel's plan."""
+    dev = i1.device
+    B = i1.numel()
+    M, P = B // mb, 2 * mb
+    a = i1.long()
+    sz = sgn.int() * z
+    st, cnt = start[a], count[a]
+    r1 = a.int() - st
+    r2 = r1 + sz
+    r2 = torch.where((r2 < 0) | (r2 >= cnt), r1 - sz, r2)
+    r2 = torch.minimum(r2.clamp_min(0), cnt - 1)
+    b = (st + r2).long()
+    n1, n2 = node[a], node[b]
+    d = (pos[a] - pos[b]).abs()
+    ok = (n1 != n2) & (d > 0)
+    d = d.clamp_min(1e-3)
+    mu = (torch.tensor(eta, dtype=torch.float32, device=dev) / (d * d)
+          ).clamp_max(1.0)
+    terms = torch.stack([n1, n2, torch.where(ok, d, -d).view(torch.int32),
+                         mu.view(torch.int32)], dim=1)
+    keys = torch.cat([n1.view(M, mb), n2.view(M, mb)], dim=1).long()
+    skey = torch.sort((keys << 11) | torch.arange(P, device=dev), dim=1
+                      ).values
+    pair = (skey & (P - 1)).flatten()
+    nd = skey >> 11
+    head = torch.ones_like(nd, dtype=torch.bool)
+    head[:, 1:] = nd[:, 1:] != nd[:, :-1]
+    head = head.flatten()
+    heads = torch.nonzero(head).squeeze(1)        # each row starts one
+    ends = torch.cat([heads[1:], heads.new_tensor([M * P])])
+    seg = torch.cumsum(head, 0) - 1
+    flat = torch.arange(M * P, device=dev)
+    word = torch.where(head, (1 << 31) | (flat % P) | ((ends - heads)[seg]
+                                                      << 11),
+                       (flat % P) | (pair[heads[seg]] << 11))
+    runs = torch.zeros(M * P, dtype=torch.int64, device=dev)
+    runs[pair + flat // P * P] = word
+    runs = runs.view(M, 2, mb).transpose(1, 2).reshape(-1)
+    runs = torch.where(runs >= 1 << 31, runs - (1 << 32), runs)
+    return torch.cat([terms.reshape(-1), runs.to(torch.int32)])
 
 
 def sgd_reference(x: torch.Tensor, i1: torch.Tensor, z: torch.Tensor,

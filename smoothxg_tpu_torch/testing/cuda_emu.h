@@ -1,11 +1,15 @@
-// cuda_emu.h — just enough of the CUDA runtime to run the port's POA
+// cuda_emu.h — just enough of the CUDA runtime (and cuda_pipeline.h's
+// asynchronous copies) to run the port's POA
 // kernels, its split-stage and SGD kernels and its probes on the CPU, for
 // testing their
 // logic where there is no GPU (smoothxg_tpu_torch/testing/cuda_emu.py
 // compiles a kernel source against it with g++ -std=c++20).
 //
 // A thread block is `blockDim.x` std::threads; thread blocks run one after
-// another, so `__shared__` variables are plain statics.  __syncthreads is a
+// another, so `__shared__` variables are plain statics, except a cluster
+// launch's (cudaLaunchKernelEx), whose blocks run at once, each with its
+// own dynamic shared memory, which the others reach through
+// cooperative_groups::cluster_group::map_shared_rank.  __syncthreads is a
 // std::barrier over the block, each warp has its own barrier for
 // __syncwarp, and a warp shuffle or ballot is a write to the warp's
 // exchange buffer between two waits on that barrier.  Every lane of a warp
@@ -41,6 +45,10 @@ struct alignas(8) uint2 {
     unsigned x, y;
 };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
+struct alignas(8) float2 {
+    float x, y;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -107,11 +115,49 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline int __float_as_int(float v) {
+    int r;
+    std::memcpy(&r, &v, 4);
+    return r;
+}
+inline float __int_as_float(int v) {
+    float r;
+    std::memcpy(&r, &v, 4);
+    return r;
+}
 // cache-operator loads and stores: plain accesses on the host
 template <typename T>
 inline T __ldcg(const T* p) { return *p; }
 template <typename T>
 inline void __stcg(T* p, T v) { *p = v; }
+
+// asynchronous copies (cuda_pipeline.h): the source is read when the copy
+// is issued and the destination written only when __pipeline_wait_prior
+// retires its group, so a read of the destination before the wait sees
+// the old bytes, as it may on the card
+namespace emu {
+struct Copy {
+    void* dst;
+    std::vector<char> bytes;
+};
+inline thread_local std::vector<Copy> open_group;
+inline thread_local std::vector<std::vector<Copy>> groups;
+}  // namespace emu
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+    const char* p = static_cast<const char*>(src);
+    emu::open_group.push_back({dst, std::vector<char>(p, p + n)});
+}
+inline void __pipeline_commit() {
+    emu::groups.push_back(std::move(emu::open_group));
+    emu::open_group.clear();
+}
+inline void __pipeline_wait_prior(size_t prior) {
+    while (emu::groups.size() > prior) {
+        for (auto& c : emu::groups.front())
+            std::memcpy(c.dst, c.bytes.data(), c.bytes.size());
+        emu::groups.erase(emu::groups.begin());
+    }
+}
 
 namespace emu {
 
@@ -120,11 +166,33 @@ struct Warp {
     long long buf[32];
 };
 
-inline std::unique_ptr<std::barrier<>> block_bar;
-inline std::vector<std::unique_ptr<Warp>> warps;
+// a thread block's barrier, warps and dynamic shared memory; each thread
+// points at its own block's
+struct Block {
+    std::unique_ptr<std::barrier<>> bar;
+    std::vector<std::unique_ptr<Warp>> warps;
+    int8_t* smem = nullptr;
+
+    void reset(unsigned threads, int8_t* mem) {
+        bar = std::make_unique<std::barrier<>>(threads);
+        warps.clear();
+        for (unsigned w = 0; w < (threads + 31) / 32; ++w)
+            warps.push_back(std::make_unique<Warp>());
+        smem = mem;
+    }
+};
+// a cluster's blocks, run at once, and its barrier
+struct Cluster {
+    std::unique_ptr<std::barrier<>> bar;
+    std::vector<Block>* blocks = nullptr;
+};
+inline thread_local Block* self = nullptr;
+inline thread_local Cluster* cluster = nullptr;
+inline thread_local unsigned cluster_rank = 0;
 inline std::vector<int8_t> dyn_smem;
 
-inline Warp& warp() { return *warps[threadIdx.x >> 5]; }
+inline Warp& warp() { return *self->warps[threadIdx.x >> 5]; }
+inline void* block_smem() { return self->smem; }
 
 template <typename T>
 inline T exchange(T v, int src) {
@@ -137,39 +205,134 @@ inline T exchange(T v, int src) {
     return r;
 }
 
-// run `kernel(args...)` over `grid` thread blocks of `block` threads; a
-// launch the card would refuse (too much dynamic shared memory, or more
-// than 48 KB without opting in) does not run and leaves an error for
-// cudaGetLastError.  Shared memory starts as garbage, as on the card.
-template <typename K, typename... A>
-void launch(unsigned grid, unsigned block, size_t smem, cudaStream_t,
-            K kernel, A... args) {
+inline bool refused(unsigned block, size_t smem) {
     if (smem > (size_t)smem_block ||
         (smem > 48 * 1024 && smem > (size_t)opt_in) || block > 1024) {
         error = cudaErrorInvalidValue;
-        return;
+        return true;
     }
+    return false;
+}
+
+// run `kernel(args...)` over `grid` thread blocks of `block` threads, one
+// block after another; a launch the card would refuse (too much dynamic
+// shared memory, or more than 48 KB without opting in) does not run and
+// leaves an error for cudaGetLastError.  Shared memory starts as garbage,
+// as on the card.
+template <typename K, typename... A>
+void launch(unsigned grid, unsigned block, size_t smem, cudaStream_t,
+            K kernel, A... args) {
+    if (refused(block, smem)) return;
     dyn_smem.assign(smem + 16, 0x5a);
+    Block blk;
     for (unsigned b = 0; b < grid; ++b) {
-        block_bar = std::make_unique<std::barrier<>>(block);
-        warps.clear();
-        for (unsigned w = 0; w < (block + 31) / 32; ++w)
-            warps.push_back(std::make_unique<Warp>());
+        blk.reset(block, dyn_smem.data());
         std::vector<std::thread> ts;
         for (unsigned t = 0; t < block; ++t)
-            ts.emplace_back([=] {
+            ts.emplace_back([=, &blk] {
                 threadIdx.x = t;
                 blockIdx.x = b;
                 blockDim.x = block;
+                self = &blk;
                 kernel(args...);
             });
         for (auto& t : ts) t.join();
     }
 }
 
+// the same over clusters of `csize` blocks: a cluster's blocks run at
+// once, each with its own dynamic shared memory (a kernel launched so
+// keeps its shared memory dynamic: `__shared__` statics are one for all
+// blocks here), and clusters one after another
+template <typename K, typename... A>
+void launch_cluster(unsigned grid, unsigned block, size_t smem,
+                    unsigned csize, K kernel, A... args) {
+    if (refused(block, smem) || csize == 0 || grid % csize != 0 ||
+        csize > 8) {
+        error = cudaErrorInvalidValue;
+        return;
+    }
+    for (unsigned c = 0; c < grid / csize; ++c) {
+        std::vector<std::vector<int8_t>> mem(
+            csize, std::vector<int8_t>(smem + 16, 0x5a));
+        std::vector<Block> blocks(csize);
+        for (unsigned r = 0; r < csize; ++r)
+            blocks[r].reset(block, mem[r].data());
+        Cluster clu;
+        clu.bar = std::make_unique<std::barrier<>>(csize * block);
+        clu.blocks = &blocks;
+        std::vector<std::thread> ts;
+        for (unsigned r = 0; r < csize; ++r)
+            for (unsigned t = 0; t < block; ++t)
+                ts.emplace_back([=, &blocks, &clu] {
+                    threadIdx.x = t;
+                    blockIdx.x = c * csize + r;
+                    blockDim.x = block;
+                    self = &blocks[r];
+                    cluster = &clu;
+                    cluster_rank = r;
+                    kernel(args...);
+                });
+        for (auto& t : ts) t.join();
+    }
+}
+
 }  // namespace emu
 
-inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
+// cudaLaunchKernelEx with a cluster dimension (the one attribute emulated)
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue {
+    struct {
+        unsigned x, y, z;
+    } clusterDim;
+};
+struct cudaLaunchAttribute {
+    cudaLaunchAttributeID id;
+    cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+    dim3 gridDim;
+    dim3 blockDim;
+    size_t dynamicSmemBytes;
+    cudaStream_t stream;
+    cudaLaunchAttribute* attrs;
+    unsigned numAttrs;
+};
+template <typename... E, typename... A>
+inline int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                              void (*kernel)(E...), A&&... args) {
+    unsigned csize = 1;
+    for (unsigned i = 0; i < cfg->numAttrs; ++i)
+        if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+            csize = cfg->attrs[i].val.clusterDim.x;
+    emu::launch_cluster(cfg->gridDim.x, cfg->blockDim.x,
+                        cfg->dynamicSmemBytes, csize, kernel, E(args)...);
+    const int e = emu::error;
+    emu::error = cudaSuccess;
+    return e;
+}
+
+// cooperative_groups' cluster: its barrier, the block's rank, and another
+// block's shared memory at the same offset
+namespace cooperative_groups {
+struct cluster_group {
+    void sync() const { emu::cluster->bar->arrive_and_wait(); }
+    unsigned block_rank() const { return emu::cluster_rank; }
+    unsigned num_blocks() const {
+        return (unsigned)emu::cluster->blocks->size();
+    }
+    template <typename T>
+    T* map_shared_rank(T* p, unsigned rank) const {
+        const std::ptrdiff_t off =
+            reinterpret_cast<int8_t*>(p) - emu::self->smem;
+        return reinterpret_cast<T*>((*emu::cluster->blocks)[rank].smem +
+                                    off);
+    }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+
+inline void __syncthreads() { emu::self->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
     emu::warp().bar.arrive_and_wait();
 }

@@ -17,9 +17,11 @@ round inputs and returns (codes, meta) and its geometry (threads a block,
 one-tile rows with the ring, sequence and row tables in shared memory,
 shared bytes, blocks an SM).
 `run_probe(exe, family, ...)` launches `probe_<family>_launch` of probes.cu
-and returns its 128 outputs.  `run_sgd`, `run_minhash_hash`,
-`run_minhash_inter` and `run_ident` launch the entries of sgd.cu,
-minhash.cu and ident.cu on the inputs their wrappers take.  A race between threads shows as a hang, so
+and returns its 128 outputs.  `run_sgd` (sgd.cu's plan and chain, or the
+chain alone on a given plan), `run_minhash_hash`, `run_minhash_inter` and
+`run_ident` (ident.cu's warp or block kernel, by the band) launch the
+entries of sgd.cu, minhash.cu and ident.cu on the inputs their wrappers
+take.  A race between threads shows as a hang, so
 callers run it under a timeout.  The emulated device has an H100's SM
 count and shared memory limits unless `sms`, `smem_block` and `smem_sm`
 say otherwise; a launch the card would refuse for its shared memory fails.
@@ -172,10 +174,11 @@ static void wr(FILE* f, const std::vector<T>& v, size_t n) {
 _SGD_MAIN = _READ + r"""
 int main(int argc, char** argv) {
     FILE* f = std::fopen(argv[1], "rb");
-    auto hd = rd<int32_t>(f, 4);
+    auto hd = rd<int32_t>(f, 5);
     const size_t T = hd[0], n = hd[1], B = hd[2];
     float eta;
     std::memcpy(&eta, &hd[3], 4);
+    const int given = hd[4];        // 1: apply the plan read, 0: make it
     auto x = rd<float>(f, n);
     auto node = rd<int32_t>(f, T);
     auto pos = rd<float>(f, T);
@@ -184,12 +187,18 @@ int main(int argc, char** argv) {
     auto i1 = rd<int32_t>(f, B);
     auto z = rd<int32_t>(f, B);
     auto sgn = rd<int8_t>(f, B);
+    auto plan = rd<int32_t>(f, 6 * B);
     std::fclose(f);
-    const int rc = sgd_iter_launch(x.data(), node.data(), pos.data(),
-                                   start.data(), count.data(), i1.data(),
-                                   z.data(), sgn.data(), eta, (int)B, nullptr);
+    int rc = 0;
+    if (!given)
+        rc = sgd_plan_launch(node.data(), pos.data(), start.data(),
+                             count.data(), i1.data(), z.data(), sgn.data(),
+                             eta, (int)B, plan.data(), nullptr);
+    if (rc == 0)
+        rc = sgd_chain_launch(x.data(), plan.data(), (int)B, nullptr);
     f = std::fopen(argv[2], "wb");
     wr(f, x, n);
+    wr(f, plan, 6 * B);
     std::fclose(f);
     return rc;
 }
@@ -253,17 +262,20 @@ _MAINS = {"sgd": _SGD_MAIN, "minhash": _MINHASH_MAIN, "ident": _IDENT_MAIN}
 
 def _rewrite(src: str) -> str:
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
-                 r"\1* \2 = (\1*)emu::dyn_smem.data();", src)
+                 r"\1* \2 = (\1*)emu::block_smem();", src)
     src = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<(.+?)>>>\(",
                  r"emu::launch(\2, \1, ", src, flags=re.S)
     return src
 
 
-def build(name: str, workdir: str) -> str:
-    """Compile csrc/<name>.cu with the emulation; returns the executable."""
+def build(name: str, workdir: str, defines=()) -> str:
+    """Compile csrc/<name>.cu with the emulation, each of `defines`
+    ("NAME=value") as a -D switch; returns the executable."""
     os.makedirs(workdir, exist_ok=True)
-    with open(os.path.join(workdir, "cuda_runtime.h"), "w") as f:
-        f.write(f'#include "{os.path.join(_HERE, "cuda_emu.h")}"\n')
+    for header in ("cuda_runtime.h", "cuda_pipeline.h",
+                   "cooperative_groups.h"):
+        with open(os.path.join(workdir, header), "w") as f:
+            f.write(f'#include "{os.path.join(_HERE, "cuda_emu.h")}"\n')
     with open(os.path.join(CSRC, f"{name}.cu")) as f:
         src = _rewrite(f.read())
     if name in _MAINS:
@@ -286,7 +298,8 @@ def build(name: str, workdir: str) -> str:
     exe = os.path.join(workdir, f"{name}_emu")
     subprocess.run([os.environ.get("CXX", "g++"), "-std=c++20", "-O1",
                     "-fno-strict-aliasing", "-ffp-contract=off", "-pthread", "-w", "-I", workdir,
-                    "-I", CSRC, "-o", exe, cpp], check=True,
+                    "-I", CSRC, *(f"-D{d}" for d in defines), "-o", exe,
+                    cpp], check=True,
                    capture_output=True, text=True, timeout=300)
     return exe
 
@@ -384,13 +397,20 @@ def _run_raw(exe: str, header: list, inputs, timeout: float) -> bytes:
 
 
 def run_sgd(exe: str, x, i1, z, sgn, node, pos, start, count, eta: float,
-            timeout: float = 300.0) -> torch.Tensor:
-    """sgd.cu's sgd_iter_launch on ops/sgd.py:sgd_iter's CPU inputs;
-    returns the updated x (a new tensor)."""
+            plan=None, timeout: float = 300.0):
+    """sgd.cu's sgd_plan_launch and sgd_chain_launch on ops/sgd.py:
+    sgd_iter's CPU inputs, or the chain alone on a given `plan` (ops/sgd.py:
+    sgd_plan's layout); returns (the updated x, the plan), new tensors."""
+    B = i1.numel()
     eta_bits = int(np.array([eta], np.float32).view(np.int32)[0])
-    raw = _run_raw(exe, [node.numel(), x.numel(), i1.numel(), eta_bits],
-                   (x, node, pos, start, count, i1, z, sgn), timeout)
-    return torch.from_numpy(np.frombuffer(raw, np.float32).copy())
+    given = plan is not None
+    if not given:
+        plan = torch.zeros(6 * B, dtype=torch.int32)
+    raw = _run_raw(exe, [node.numel(), x.numel(), B, eta_bits, int(given)],
+                   (x, node, pos, start, count, i1, z, sgn, plan), timeout)
+    n = x.numel()
+    return (torch.from_numpy(np.frombuffer(raw[:4 * n], np.float32).copy()),
+            torch.from_numpy(np.frombuffer(raw[4 * n:], np.int32).copy()))
 
 
 def run_minhash_hash(exe: str, codes, lens, k: int,

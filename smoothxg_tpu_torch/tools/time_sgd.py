@@ -1,11 +1,12 @@
 """Time the path-SGD layout of the prep stage on a seeded generator graph:
 the native host backend (csrc/host/sgd.cpp, sequential) against the
-batched route on the card (csrc/sgd.cu, one launch an iteration), with
-each route's mean step rank-jump on the graph in a shuffled node order
-(the quality bound of tests/test_parallel.py:186-208: the card's within
-1.2x of native's), the kernel's time an iteration by CUDA events beside
-its bound, and the rest of prep (groom, toposort, chop) once.  Prints one
-line per measurement and a JSON line.  Needs CUDA.
+batched route on the card (csrc/sgd.cu: a plan launch and a chain launch
+an iteration), with each route's mean step rank-jump on the graph in a
+shuffled node order (the quality bound of tests/test_parallel.py:186-208:
+the card's within 1.2x of native's), the kernels' times an iteration by
+CUDA events beside their bounds, the sha256 of the final x, and the rest
+of prep (groom, toposort, chop) once.  Prints one line per measurement and
+a JSON line.  Needs CUDA.
 
 Usage: python -m smoothxg_tpu_torch.tools.time_sgd [haplotypes] [length]
        [--no-native] [--cpu-iters=N]
@@ -16,6 +17,7 @@ CPU, the route of device="cpu", and extrapolates them to 100)
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import sys
@@ -56,15 +58,37 @@ def rank_jump(g, order) -> float:
     return tot / max(n, 1)
 
 
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def plan_bound(prob) -> tuple[float, str]:
+    """(ms, by) of the plan kernel: its share of the iteration's inputs,
+    the draws (9 B a term) and the step arrays (16 B a step) read once,
+    against its float work (d and mu, 5 operations a term).  The plan it
+    writes is this design's own traffic, which the replaced function
+    (smoothxg_tpu/ops/sgd.py:49) never makes, so it is not counted."""
+    return _bound(prob.B_pad * 9 + prob.T * 16, prob.B_pad * 5)
+
+
+def chain_bound(prob) -> tuple[float, str]:
+    """(ms, by) of the chain kernel: its share of the iteration's work, x
+    read and written once, against the float work of a term's update and
+    its share of the fold; the plan it reads is not counted (see
+    plan_bound).  The two bounds together are at most the iteration's,
+    sgd_bound."""
+    return _bound(len(prob.x0) * 8, prob.B_pad * SGD_FLOPS_TERM)
+
+
 def sgd_bound(prob) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time of one iteration
     (one launch): its inputs read once (the draws, 9 B a term; the step
     arrays, 16 B a step; x) and x written once, over the card's memory
     rate, against its float operations over the float32 rate."""
-    nbytes = prob.B_pad * 9 + prob.T * 16 + len(prob.x0) * 8
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = prob.B_pad * SGD_FLOPS_TERM / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(prob.B_pad * 9 + prob.T * 16 + len(prob.x0) * 8,
+                  prob.B_pad * SGD_FLOPS_TERM)
 
 
 def chain_floor_ms(prob, iter_max: int = 100) -> float:
@@ -75,18 +99,23 @@ def chain_floor_ms(prob, iter_max: int = 100) -> float:
 
 def time_kernel(torch, prob, dev, iter_max: int = 100):
     """The batched route through ops/sgd.py:sgd_steps, `sgd_solve`'s own
-    loop, with CUDA events around each kernel launch: (final x, kernel ms
-    of each iteration)."""
+    loop, each step's call made as `sgd_iter` makes it, the plan kernel
+    (`sgd_plan`) and then the chain kernel on that plan, with CUDA events
+    around each: (final x, plan ms of each iteration, chain ms of each
+    iteration)."""
     from ..ops import sgd
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(iter_max)]
-    for (e0, e1), step in zip(ev, sgd.sgd_steps(prob, iter_max,
-                                                device=dev)):
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+          for _ in range(iter_max)]
+    for (e0, e1, e2), step in zip(ev, sgd.sgd_steps(prob, iter_max,
+                                                    device=dev)):
         e0.record()
-        x = step()
+        plan = sgd.sgd_plan(*step.args[1:])
         e1.record()
+        x = step(plan=plan)
+        e2.record()
     torch.cuda.synchronize()
-    return x, [a.elapsed_time(b) for a, b in ev]
+    return (x, [a.elapsed_time(b) for a, b, _ in ev],
+            [b.elapsed_time(c) for _, b, c in ev])
 
 
 def time_plain_cpu(prob, iters: int, iter_max: int = 100) -> dict:
@@ -142,23 +171,35 @@ def main(argv: list[str]) -> int:
     _build.load()                    # build and load the kernels
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    x, iters = time_kernel(torch, prob, dev)
+    x, plan_ms, chain_ms = time_kernel(torch, prob, dev)
     card_s = time.perf_counter() - t0
+    iters = [a + b for a, b in zip(plan_ms, chain_ms)]
     order = np.argsort(x.cpu().numpy().astype(np.float64), kind="stable")
     r_card = rank_jump(g, [prob.node_ids[i] for i in order])
     bound, by = sgd_bound(prob)
+    pb, cb = plan_bound(prob), chain_bound(prob)
     out.update(card_sgd_s=card_s, kernel_ms_total=sum(iters),
                kernel_ms_iter=sum(iters) / len(iters),
                kernel_ms_iter_min=min(iters), kernel_ms_iter_max=max(iters),
-               bound_ms_iter=bound, bound_by=by,
-               chain_floor_ms=chain_floor_ms(prob),
+               plan_ms_iter=sum(plan_ms) / len(plan_ms),
+               chain_ms_iter=sum(chain_ms) / len(chain_ms),
+               chain_ms_iter_min=min(chain_ms),
+               chain_ms_iter_max=max(chain_ms),
+               bound_ms_iter=bound, bound_by=by, plan_bound_ms=pb[0],
+               chain_bound_ms=cb[0], chain_floor_ms=chain_floor_ms(prob),
+               x_sha256=hashlib.sha256(x.cpu().numpy().tobytes()
+                                       ).hexdigest(),
                rank_jump_input=before, rank_jump_card=r_card)
-    print(f"card: SGD {card_s:.3f} s wall (draws + kernels), kernel "
+    print(f"card: SGD {card_s:.3f} s wall (draws + kernels), kernels "
           f"{sum(iters):.1f} ms over 100 iterations ({min(iters):.3f}-"
-          f"{max(iters):.3f} ms an iteration); bound {bound:.4f} ms an "
-          f"iteration by {by}, chain floor {out['chain_floor_ms']:.1f} ms "
-          f"for 100; rank-jump {r_card:.3f} (input order {before:.1f})",
-          flush=True)
+          f"{max(iters):.3f} ms an iteration): plan "
+          f"{out['plan_ms_iter']:.3f} ms an iteration (bound {pb[0]:.4f} ms "
+          f"by {pb[1]}), chain {out['chain_ms_iter']:.3f} ms "
+          f"({min(chain_ms):.3f}-{max(chain_ms):.3f}; bound {cb[0]:.4f} ms "
+          f"by {cb[1]}); the iteration's bound {bound:.4f} ms by {by}, "
+          f"chain floor {out['chain_floor_ms']:.1f} ms for 100; rank-jump "
+          f"{r_card:.3f} (input order {before:.1f}); x sha256 "
+          f"{out['x_sha256'][:16]}", flush=True)
     cpu_iters = [int(a.split("=", 1)[1]) for a in argv
                  if a.startswith("--cpu-iters=")]
     if cpu_iters:

@@ -259,8 +259,11 @@ def test_round_slice_on_gpu_matches_native_bytes(cuda_device, tmp_path):
 
 
 def test_sgd_kernel_matches_plain_version(cuda_device, tmp_path):
-    """csrc/sgd.cu against sgd_reference on the card, two iterations of
-    draws from one generator: x bit-identical."""
+    """csrc/sgd.cu against its plain versions on the card, two iterations
+    of draws from one generator: the plan kernel's words equal to
+    sgd_plan_reference's and the chain kernel's x to sgd_reference's, bit
+    for bit; the plan of the second iteration applied again to the first
+    x gives the plain version's x there too."""
     from smoothxg_tpu_torch.io.gfa import read_gfa
     from smoothxg_tpu_torch.ops import sgd
     g = read_gfa(write_pangenome(str(tmp_path / "in.gfa"), haplotypes=8,
@@ -271,15 +274,21 @@ def test_sgd_kernel_matches_plain_version(cuda_device, tmp_path):
     gen.manual_seed(1)
     x = torch.from_numpy(prob.x0.astype(np.float32)).to(cuda_device)
     xk = x.clone()
-    before = sgd.sgd_iter.launches
+    before = sgd.sgd_iter.launches, sgd.sgd_plan.launches
+    x_first = x.clone()
     for eta, cap in zip(prob.etas(2), (prob.zipf_space, 1000)):
         ins = (*sgd.sgd_draws(gen, prob.T, prob.B_pad, arr["cdf"], cap),
                arr["node"], arr["pos"], arr["start"], arr["count"],
                float(eta))
-        sgd.sgd_iter(xk, *ins)
+        plan = sgd.sgd_plan(*ins)
+        assert torch.equal(plan, sgd.sgd_plan_reference(*ins))
+        sgd.sgd_iter(xk, *ins, plan=plan)
         sgd.sgd_reference(x, *ins)
         assert torch.equal(xk, x)
-    assert sgd.sgd_iter.launches == before + 2
+    assert torch.equal(sgd.sgd_iter(x_first.clone(), *ins, plan=plan),
+                       sgd.sgd_reference(x_first.clone(), *ins))
+    assert (sgd.sgd_iter.launches, sgd.sgd_plan.launches) == \
+        (before[0] + 3, before[1] + 2)
 
 
 def test_split_kernels_match_plain_versions(cuda_device):
@@ -309,7 +318,7 @@ def test_split_kernels_match_plain_versions(cuda_device):
     packed = ic.pack_pairs([ic._prep_pair(a, b) for a, b in pairs])
     ins = [packed[n].to(cuda_device)
            for n in ("a", "aoff", "la", "b", "boff", "lb")]
-    for band in (128, 32):
+    for band in (128, 32, 64, 96, 256, 288):     # warp kernel to 256
         assert torch.equal(ic.ident_counts(*ins, band),
                            ic.ident_counts_reference(*ins, band))
     assert ic.DeviceBandedIdentity(device=cuda_device).identities(pairs) == \

@@ -5,8 +5,10 @@ port's numpy mirror, and scores and counts equal to the mirror's, on
 seeded pairs: related at several divergences, with indels, pairs that
 leave the band, lb = 0 and empty pairs, and pairs bailed by max_score; a
 band of 32 and one of 64; and csrc/ident.cu compiled against the CUDA
-emulation, equal to its plain version.  (The pair past 46,340 bp, ROADMAP
-C3: test_torch_ident_long.py.)"""
+emulation, equal to its plain version at bands 32, 64, 128 and 256 (the
+warp kernel, one warp a pair), 96, 160 and 224 (its other column counts)
+and 288 (the block kernel, one thread a column).  (The pair past 46,340
+bp, ROADMAP C3: test_torch_ident_long.py.)"""
 import numpy as np
 import pytest
 import torch
@@ -89,14 +91,58 @@ def test_bail_on_max_score():
     assert dev.identities([(a, b)], max_score=sc) == [0.0]
 
 
-def test_kernel_emulated_matches_plain_version(tmp_path):
-    exe = cuda_emu.build("ident", str(tmp_path / "ident"))
+@pytest.fixture(scope="module")
+def ident_exe(tmp_path_factory):
+    return cuda_emu.build("ident", str(tmp_path_factory.mktemp("ident")))
+
+
+def test_kernel_emulated_matches_plain_version(ident_exe):
+    """The warp kernel at 32-256 columns and the block kernel past 256,
+    chosen by the band alone; 12 pairs, so the last block of four warps
+    holds one pair."""
     pairs = make_pairs(3, 8, 260)
     packed = ic.pack_pairs([ic._prep_pair(a, b) for a, b in pairs])
     ins = [packed[n] for n in ("a", "aoff", "la", "b", "boff", "lb")]
-    for band in (128, 32):
-        got = cuda_emu.run_ident(exe, *ins, band=band)
+    for band in (128, 32, 64, 256, 288):
+        got = cuda_emu.run_ident(ident_exe, *ins, band=band, timeout=120)
         assert torch.equal(got, ic.ident_counts(*ins, band))
+
+
+@pytest.mark.parametrize("band", [96, 160, 224])
+def test_kernel_emulated_other_column_counts(ident_exe, band):
+    pairs = make_pairs(4, 5, 400)
+    packed = ic.pack_pairs([ic._prep_pair(a, b) for a, b in pairs])
+    ins = [packed[n] for n in ("a", "aoff", "la", "b", "boff", "lb")]
+    got = cuda_emu.run_ident(ident_exe, *ins, band=band, timeout=120)
+    assert torch.equal(got, ic.ident_counts(*ins, band))
+    want = np.array([ic.host_banded_identity(a, b, band=band,
+                                             return_counts=True)
+                     for a, b in pairs])
+    assert np.array_equal(got.numpy(), want)
+
+
+def tie_pairs(seed: int = 0, n: int = 60):
+    """Pairs of 20-300 bp at 30% divergence: the in-row gap's prefix
+    minimum ties, now and then, between columns that carry other
+    counts."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for _ in range(n):
+        a = _seq(rng, int(rng.integers(20, 300)))
+        pairs.append((a, _mutate(rng, a, 0.3)))
+    return pairs
+
+
+@pytest.mark.parametrize("band", [32, 64, 128])
+def test_kernel_emulated_takes_the_earliest_column_on_ties(ident_exe, band):
+    """The warp kernel's scans keep the earliest column on a tie, as the
+    plain version's packed keys (and the mirror's left-preferring prefix)
+    do."""
+    pairs = tie_pairs()
+    packed = ic.pack_pairs([ic._prep_pair(a, b) for a, b in pairs])
+    ins = [packed[n] for n in ("a", "aoff", "la", "b", "boff", "lb")]
+    got = cuda_emu.run_ident(ident_exe, *ins, band=band, timeout=120)
+    assert torch.equal(got, ic.ident_counts(*ins, band))
 
 
 def test_wrapper_checks_its_inputs(monkeypatch):

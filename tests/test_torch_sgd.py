@@ -13,9 +13,13 @@ package's (smoothxg_tpu/ops/sgd.py) on small seeded pangenomes:
     tests/test_parallel.py:186-208);
   * the routes: "auto" below SGD_DEVICE_MIN_TERMS is the native backend,
     at or above it the card, which without CUDA raises "CUDA required";
-  * csrc/sgd.cu compiled against the CUDA emulation, bit-identical to the
-    plain version on the same draws;
+  * csrc/sgd.cu compiled against the CUDA emulation, its plan kernel
+    bit-identical to `sgd_plan_reference` and its chain kernel's x to
+    `sgd_reference` on the same draws: one minibatch, two iterations of
+    four, a hub node that every term's i1 hits, and one plan applied to
+    two different x (the plan does not depend on x);
   * the draws, and the JAX route's float32 i1 (ROADMAP C8)."""
+
 import numpy as np
 import pytest
 import torch
@@ -179,24 +183,91 @@ def test_prep_passes_the_run_device(gfa, monkeypatch):
     assert seen == ["cpu", "cuda", "cpu"]
 
 
-def test_kernel_emulated_matches_plain_version(gfa, tmp_path):
+@pytest.fixture(scope="module")
+def sgd_exe(tmp_path_factory):
+    return cuda_emu.build("sgd", str(tmp_path_factory.mktemp("sgd_emu")))
+
+
+def _inputs(prob, i1, z, sgn, eta):
+    arr = prob.tensors(torch.device("cpu"))
+    return (i1, z, sgn, arr["node"], arr["pos"], arr["start"],
+            arr["count"], float(eta))
+
+
+def _hold(exe, x, ins):
+    """The emulated plan and chain on x against the plain versions: the
+    plan's words and the new x bit for bit.  Returns (x, plan)."""
+    want = sgd.sgd_reference(x.clone(), *ins)
+    xk, plan = cuda_emu.run_sgd(exe, x, *ins, timeout=120)
+    assert torch.equal(plan, sgd.sgd_plan_reference(*ins))
+    assert torch.equal(xk, want)
+    return xk, plan
+
+
+def test_kernel_emulated_matches_plain_version(gfa, sgd_exe):
     """csrc/sgd.cu on the CUDA emulation, two iterations of four
-    minibatches on the card's draws' layout: x bit-identical."""
+    minibatches on the card's draws' layout: plan and x bit-identical."""
     g, _ = _shuffled(gfa)
     prob = sgd.sgd_problem(g)
     arr = prob.tensors(torch.device("cpu"))
-    exe = cuda_emu.build("sgd", str(tmp_path / "sgd"))
     gen = torch.Generator().manual_seed(3)
     x = torch.from_numpy(prob.x0.astype(np.float32))
-    xk = x.clone()
     for eta, cap in zip(prob.etas(2), (prob.zipf_space, 1000)):
         d = sgd.sgd_draws(gen, prob.T, prob.B_pad, arr["cdf"], cap)
-        ins = (*d, arr["node"], arr["pos"], arr["start"], arr["count"],
-               float(eta))
-        sgd.sgd_iter(x, *ins)
-        xk = cuda_emu.run_sgd(exe, xk, *ins)
-        assert torch.equal(xk, x)
+        x, _ = _hold(sgd_exe, x, _inputs(prob, *d, eta))
     assert not torch.equal(x, torch.from_numpy(prob.x0.astype(np.float32)))
+
+
+def test_kernel_emulated_one_minibatch(gfa, sgd_exe):
+    prob = sgd.sgd_problem(read_gfa(gfa).compact())
+    arr = prob.tensors(torch.device("cpu"))
+    d = sgd.sgd_draws(torch.Generator().manual_seed(4), prob.T,
+                      sgd.MINIBATCH, arr["cdf"], prob.zipf_space)
+    x0 = torch.from_numpy(prob.x0.astype(np.float32))
+    x, plan = _hold(sgd_exe, x0, _inputs(prob, *d, prob.etas(1)[0]))
+    assert plan.numel() == sgd.plan_words(sgd.MINIBATCH)
+    assert not torch.equal(x, x0)
+
+
+def test_kernel_emulated_hub_node(gfa, sgd_exe):
+    """Every term's i1 on one step: its node heads a run of at least 1,024
+    pairs, which one thread folds in order."""
+    prob = sgd.sgd_problem(read_gfa(gfa).compact())
+    arr = prob.tensors(torch.device("cpu"))
+    B = 2 * sgd.MINIBATCH
+    _, z, sgn = sgd.sgd_draws(torch.Generator().manual_seed(5), prob.T, B,
+                              arr["cdf"], prob.zipf_space)
+    i1 = torch.full((B,), prob.T // 3, dtype=torch.int32)
+    x, plan = _hold(sgd_exe, torch.from_numpy(prob.x0.astype(np.float32)),
+                    _inputs(prob, i1, z, sgn, prob.etas(1)[0]))
+    runs = plan[4 * B:6 * B]
+    assert int((runs[runs < 0] >> 11 & 0xfff).max()) >= sgd.MINIBATCH
+
+
+def test_plan_does_not_depend_on_x(gfa, sgd_exe):
+    """One plan, made once, applied by the emulated chain to two different
+    x: each equals the plain version on that x.  On the CPU the wrappers
+    run the plain versions, plan or no plan."""
+    g, _ = _shuffled(gfa)
+    prob = sgd.sgd_problem(g)
+    arr = prob.tensors(torch.device("cpu"))
+    d = sgd.sgd_draws(torch.Generator().manual_seed(6), prob.T, prob.B_pad,
+                      arr["cdf"], 1000)
+    ins = _inputs(prob, *d, prob.etas(3)[2])
+    plan = sgd.sgd_plan(*ins)
+    assert torch.equal(plan, sgd.sgd_plan_reference(*ins))
+    xa = torch.from_numpy(prob.x0.astype(np.float32))
+    xb = xa[torch.randperm(len(xa), generator=torch.Generator()
+                           .manual_seed(7))].contiguous()
+    for x in (xa, xb):
+        want = sgd.sgd_reference(x.clone(), *ins)
+        got, same = cuda_emu.run_sgd(sgd_exe, x, *ins, plan=plan,
+                                     timeout=120)
+        assert torch.equal(same, plan)
+        assert torch.equal(got, want)
+        assert torch.equal(sgd.sgd_iter(x.clone(), *ins, plan=plan), want)
+    with pytest.raises(ValueError, match="sgd_iter wants"):
+        sgd.sgd_plan(ins[0][:100], *ins[1:])
 
 
 def test_draws():
@@ -227,3 +298,25 @@ def test_jax_float_draw_misses_steps_past_2_23():
                        generator=torch.Generator().manual_seed(1)).numpy()
     missed = ~np.isin(i1, reach)
     assert missed.mean() > 0.9
+
+
+def test_cuts_apply_to_the_chain_kernel(gfa, tmp_path):
+    """tools/sgd_cuts.py's timing-only variants are compile-time switches of
+    csrc/sgd.cu: the source with every cut still compiles (against the
+    emulation), and its chain of a cluster of 2 thread blocks instead of 8
+    is still a valid kernel, bit-identical to the plain version."""
+    from smoothxg_tpu_torch.tools import sgd_cuts
+    assert sgd_cuts.defines(("loads", "stores", "cluster 2")) == [
+        "SGD_CLUSTER=2", "SGD_CUTS=3"]
+    assert sgd_cuts.defines(()) == []
+    every = sgd_cuts.defines(("stores", "loads", "fold", "barriers"))
+    assert every == ["SGD_CUTS=15"]
+    cuda_emu.build("sgd", str(tmp_path / "emu"), every)
+    exe = cuda_emu.build("sgd", str(tmp_path / "emu2"),
+                         sgd_cuts.defines(("cluster 2",)))
+    prob = sgd.sgd_problem(read_gfa(gfa).compact())
+    arr = prob.tensors(torch.device("cpu"))
+    d = sgd.sgd_draws(torch.Generator().manual_seed(8), prob.T, prob.B_pad,
+                      arr["cdf"], prob.zipf_space)
+    _hold(exe, torch.from_numpy(prob.x0.astype(np.float32)),
+          _inputs(prob, *d, prob.etas(1)[0]))
