@@ -74,20 +74,27 @@ result:
      rank-jump of the card's order <= 1.2 x the native backend's on the
      16 x 1 Mb graph in a shuffled node order (native takes minutes on the
      64 x 5 Mb graph: tools/time_sgd.py measures it there).
- 15. split kernels: minhash_hash + minhash_inter (csrc/minhash.cu) on 200
-     seeded blocks (the sentinel 16-mer in every fifth) and ident
-     (csrc/ident.cu) on 240 seeded pairs (off-band, lb = 0, bailed) equal
-     to their plain versions and the numpy mirrors at band 128, and to the
-     plain version at band 32 (both the warp kernel) and 288 (the block
-     kernel), and on two pairs past 46,340 bp equal to the mirror; each
-     timed on a 512-sequence block (the torch.sort share of the MinHash
-     launch) or 2,048 pairs (bands 128, 32 and 288).
+ 15. split kernels: csrc/minhash.cu's hash step (minhash_hash, sorted in
+     shared memory, and minhash_hash_long, in device memory) and
+     intersections (minhash_inter by tiles, and minhash_inter_long, a
+     block a pair) on 200 seeded blocks (the
+     sentinel 16-mer in every fifth), a block of 512 rows, rows of 1 and
+     ~20k hashes and a batch of rows of 20k-50k (past both shared-memory
+     routes), equal to their plain versions (sorted_sets of
+     minhash_hash_reference, minhash_inter_reference) and the distances to
+     the numpy mirror; ident (csrc/ident.cu) on 240 seeded pairs
+     (off-band, lb = 0, bailed) equal to its plain version and the numpy
+     mirror at band 128, and to the plain version at band 32 (both the
+     warp kernel) and 288 (the block kernel), and on two pairs past 46,340
+     bp equal to the mirror; each timed on a 512-sequence block (the hash
+     step as one function) or 2,048 pairs (bands 128, 32 and 288).
  16. main paths: (a) the CLI's default engine with -U 200 on phase 4's
      input (one POA iteration, -l 700), twice: the same GFA and MAF
      bytes, exactly sgd, sgd_plan and poa_win launched; (b) the CLI with --engine native and both split device
      routes on the divergent fixture (io/synth.make_divergent_gfa over the
      generator's 8 x 20 kb pangenome): blocks split, exactly the split
-     kernels launched, and the bytes of run_smoothing(cfg, device="cpu").
+     kernels launched (the MinHash calls' shapes, launches and walls a
+     call printed), and the bytes of run_smoothing(cfg, device="cpu").
 Every main path (4, 7, 9, 11, the probes' phase 12, 14's prep and 16)
 runs with all thirteen wrappers' launch counts set to 0 just before it and
 read just after: its own kernels must have launched and no other.  Then the
@@ -211,15 +218,19 @@ def win_dp_work(seqs, paths) -> tuple:
 
 PROBES = ("probe_scalar", "probe_row", "probe_tile", "probe_step")
 SPLIT = ("minhash_hash", "minhash_inter", "ident")
+# the split kernels' routes for rows past shared memory: on no main path
+LONG = ("minhash_hash_long", "minhash_inter_long")
 KERNELS = (("poa_win", "poa_round", "poa_code", "poa_stacked") + PROBES
-           + ("sgd", "sgd_plan") + SPLIT)
+           + ("sgd", "sgd_plan") + SPLIT + LONG)
 
 
 def wrappers() -> dict:
     """Each kernel's wrapper, which counts its launches, by name."""
     from smoothxg_tpu_torch.ops.ident_cuda import ident_counts
     from smoothxg_tpu_torch.ops.minhash_cuda import (minhash_hash,
-                                                     minhash_inter)
+                                                     minhash_hash_long,
+                                                     minhash_inter,
+                                                     minhash_inter_long)
     from smoothxg_tpu_torch.ops.poa_code import poa_code
     from smoothxg_tpu_torch.ops.poa_round import poa_round
     from smoothxg_tpu_torch.ops.poa_stacked import poa_stacked
@@ -230,7 +241,9 @@ def wrappers() -> dict:
             "poa_code": poa_code, "poa_stacked": poa_stacked, **WRAPPERS,
             "sgd": sgd_iter, "sgd_plan": sgd_plan,
             "minhash_hash": minhash_hash,
-            "minhash_inter": minhash_inter, "ident": ident_counts}
+            "minhash_inter": minhash_inter, "ident": ident_counts,
+            "minhash_hash_long": minhash_hash_long,
+            "minhash_inter_long": minhash_inter_long}
 
 
 def drive(run, own):
@@ -979,10 +992,15 @@ def build_summary(log: str) -> str:
         parts.append(f"{fam} kernels: {len(own)} instantiations, "
                      f"{min(own, default=-1)}-{max(own, default=-1)} "
                      f"registers")
-    for name in ("sgd_plan", "sgd_chain", "minhash_hash", "minhash_inter",
-                 "ident_block"):
-        mine = [r for e, r in regs.items() if f"{name}_kernel" in e]
-        parts.append(f"{name}_kernel " + (
+    for name, tag in (("sgd_plan", "sgd_plan_kernel"),
+                      ("sgd_chain", "sgd_chain_kernel"),
+                      ("minhash_hash (shared)", "minhash_hash_kernelILb0"),
+                      ("minhash_hash (device)", "minhash_hash_kernelILb1"),
+                      ("minhash_inter", "minhash_inter_kernel"),
+                      ("minhash_inter_long", "minhash_inter_long_kernel"),
+                      ("ident_block", "ident_block_kernel")):
+        mine = [r for e, r in regs.items() if tag in e]
+        parts.append(f"{name} " + (
             f"{used(mine[0])} registers, {spilled(mine[0])}" if mine
             else "ptxas: no report"))
     warp = sorted((int(m[1]), r) for e, r in regs.items()
@@ -1015,15 +1033,7 @@ SPLIT_FLAGS = ["-r", "16", "-j", "5k", "-e", "5k", "-l", "700", "-t", "1",
 # selects: 5), the in-row gap D(j) = min(D(j-1) + e, Hq(j-1) + o + e) (8,
 # as I), H = min(Hq, D) (5) and the band's mask (a compare, two selects: 3)
 OPS_IDENT_CELL = 38
-# int32 operations a position of a rolling canonical k-mer and its hash:
-# the forward pack (shift, or, mask: 3), the reverse complement (xor, two
-# shifts, or: 4), the run of valid bases and the row's end (3), the
-# canonical minimum and the valid test (2), fmix32 (three shift-xors, two
-# multiplies: 8), the sentinel's select (1)
-OPS_HASH_POS = 21
-# int32 operations a hash of both rows in minhash_inter's merge (two
-# compares, the count's add, the index's advance)
-OPS_MERGE_HASH = 4
+# (the MinHash bounds: tools/time_minhash.py:bounds)
 
 
 def cuda_ms(torch, fn, reps: int = 3) -> float:
@@ -1227,16 +1237,42 @@ def ident_pairs(rng, n: int):
     return pairs, ms
 
 
+def hold_minhash(torch, mc, codes, lens, k: int, label: str):
+    """Both routes of the hash step and of the intersections on one batch
+    against their plain versions, exact (the shared-memory hash route and
+    the tile route where the batch fits them).  Returns the plain (hs,
+    counts, inter)."""
+    hs, counts = mc.sorted_sets(mc.minhash_hash_reference(codes, lens, k))
+    B, L = codes.shape
+    routes = [mc.minhash_hash_long]
+    if mc.hash_smem(L, k) <= mc.SMEM_MAX:
+        routes.append(mc.minhash_hash)
+    for route in routes:
+        got = route(codes, lens, k)
+        if not (torch.equal(got[0], hs) and torch.equal(got[1], counts)):
+            fail(f"{route.__name__} != plain version on {label}")
+    ref = mc.minhash_inter_reference(hs, counts,
+                                     *mc.triu_pairs(B, codes.device))
+    got = {"minhash_inter_long": mc.minhash_inter_long(hs, counts)}
+    if mc.tile_rows(B, L):
+        got["minhash_inter"] = mc.minhash_inter(hs, counts)
+    for name, g in got.items():
+        if not torch.equal(g, ref):
+            fail(f"{name} != plain version on {label}")
+    return hs, counts, ref
+
+
 def split_phase(torch, dev, clock_mhz, n_blocks=200, n_pairs=240,
                 long_pairs=(46_400, 47_000), deep=512):
-    """Phase 15: minhash_hash + minhash_inter (csrc/minhash.cu) and ident
-    (csrc/ident.cu) against their plain versions on the card and the numpy
-    mirrors on seeded blocks and pairs, exact; then timed on a deep block.
-    Returns the three kernels' JSON entry fields."""
+    """Phase 15: the hash step and the intersections of csrc/minhash.cu
+    (each in both routes) and ident (csrc/ident.cu) against their plain
+    versions on the card and the numpy mirrors on seeded blocks and pairs,
+    exact; then timed on a deep block.  Returns the kernels' JSON entry
+    fields."""
     import numpy as np
     from smoothxg_tpu_torch.ops import ident_cuda as ic
     from smoothxg_tpu_torch.ops import minhash_cuda as mc
-    from smoothxg_tpu_torch.tools.time_sgd import HBM_BYTES_PER_S
+    from smoothxg_tpu_torch.tools.time_minhash import bounds, long_block
     rng = np.random.default_rng(SEED + 15)
     t0 = time.perf_counter()
     n_hash = n_pairs_mh = 0
@@ -1244,26 +1280,44 @@ def split_phase(torch, dev, clock_mhz, n_blocks=200, n_pairs=240,
         k = 16 if b % 4 else 11
         codes, lens = (torch.from_numpy(a).to(dev)
                        for a in mc.encode_batch(seqs))
-        h = mc.minhash_hash(codes, lens, k)
-        if not torch.equal(h, mc.minhash_hash_reference(codes, lens, k)):
-            fail(f"minhash_hash != plain version on block {b}")
-        hs, counts = mc.sorted_sets(h)
-        ii, jj = np.triu_indices(len(seqs), 1)
-        pa = torch.from_numpy(ii.astype(np.int32)).to(dev)
-        pb = torch.from_numpy(jj.astype(np.int32)).to(dev)
-        if not torch.equal(mc.minhash_inter(hs, counts, pa, pb),
-                           mc.minhash_inter_reference(hs, counts, pa, pb)):
-            fail(f"minhash_inter != plain version on block {b}")
+        hold_minhash(torch, mc, codes, lens, k, f"block {b}")
         d = mc.DeviceMinHash(k, device=dev).distance_matrix(seqs)
         if not np.array_equal(d, mc.host_distance_matrix(seqs, k)):
             fail(f"minhash distances != the numpy mirror on block {b}")
         n_hash += int(codes.numel())
-        n_pairs_mh += len(ii)
+        n_pairs_mh += len(seqs) * (len(seqs) - 1) // 2
     say(f"minhash: {n_blocks} blocks ({n_hash} positions, {n_pairs_mh} "
         f"pairs, k 16 and 11, the sentinel 16-mer in every fifth): "
-        f"minhash_hash and minhash_inter equal to their plain versions, "
+        f"minhash_hash and minhash_hash_long equal to sorted_sets("
+        f"minhash_hash_reference), minhash_inter (one tile) and "
+        f"minhash_inter_long equal to minhash_inter_reference, "
         f"distances equal to the numpy mirror (tolerance 0), "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # the long-row cases draw from their own generator, so the ident pairs
+    # and the timing blocks below are those of earlier smokes
+    lrng = np.random.default_rng(SEED + 151)
+    big = _seq(lrng, 20_000)
+    cases = {"rows of 1 and ~20k hashes": ["A" * 16, big, _mutate(lrng, big,
+                                                                  0.01)],
+             "rows of 20k-50k (past both shared-memory routes)":
+                 long_block(lrng)}
+    for label, seqs in cases.items():
+        codes, lens = (torch.from_numpy(a).to(dev)
+                       for a in mc.encode_batch(seqs))
+        _, counts, _ = hold_minhash(torch, mc, codes, lens, 16, label)
+        d = mc.DeviceMinHash(16, device=dev).distance_matrix(seqs)
+        if not np.array_equal(d, mc.host_distance_matrix(seqs, 16)):
+            fail(f"minhash distances != the numpy mirror on {label}")
+        B, L = codes.shape
+        R = mc.tile_rows(B, L)
+        say(f"minhash {label}: counts {counts.tolist()}, routes: hash "
+            f"{'shared' if mc.hash_smem(L, 16) <= mc.SMEM_MAX else 'device'}"
+            f" memory, intersections "
+            f"{f'tiles of {R} rows' if R else 'a block a pair'}; both "
+            f"routes of each equal to the plain versions, distances to the "
+            f"numpy mirror")
+    say(f"minhash long-row cases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     pairs, ms = ident_pairs(rng, n_pairs)
     packed = ic.pack_pairs([ic._prep_pair(a, b) for a, b in pairs])
@@ -1309,51 +1363,56 @@ def split_phase(torch, dev, clock_mhz, n_blocks=200, n_pairs=240,
         f"identities {[round(ic.identity_from_counts(*c[1:]), 6) for c in mirror.tolist()]}, "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # timing: a deep block of 512 sequences of ~1.4 kb
+    # timing: a deep block of 512 sequences of ~1.4 kb, held to the plain
+    # versions first
     base = _seq(rng, 1400)
     seqs = [_mutate(rng, base, 0.05) for _ in range(deep)]
     codes, lens = (torch.from_numpy(a).to(dev)
                    for a in mc.encode_batch(seqs))
     B, L = codes.shape
     k = 16
+    hs, counts, _ = hold_minhash(torch, mc, codes, lens, k,
+                                 f"the {B}-row block")
     hash_ms = cuda_ms(torch, lambda: mc.minhash_hash(codes, lens, k))
-    h = mc.minhash_hash(codes, lens, k)
-    sort_ms = cuda_ms(torch, lambda: mc.sorted_sets(h))
-    hash_plain = cuda_ms(torch, lambda: mc.minhash_hash_reference(codes,
-                                                                  lens, k))
+    hash_long_ms = cuda_ms(torch, lambda: mc.minhash_hash_long(codes, lens,
+                                                               k))
+    hash_plain = cuda_ms(torch, lambda: mc.sorted_sets(
+        mc.minhash_hash_reference(codes, lens, k)))
+    h = mc.minhash_hash_reference(codes, lens, k)
     hash_lib = cuda_ms(torch, lambda: torch.sort(h, dim=1))
-    hs, counts = mc.sorted_sets(h)
-    ii, jj = np.triu_indices(B, 1)
-    pa = torch.from_numpy(ii.astype(np.int32)).to(dev)
-    pb = torch.from_numpy(jj.astype(np.int32)).to(dev)
-    inter_ms = cuda_ms(torch, lambda: mc.minhash_inter(hs, counts, pa, pb))
+    pa, pb = mc.triu_pairs(B, dev)
+    inter_ms = cuda_ms(torch, lambda: mc.minhash_inter(hs, counts))
+    inter_long_ms = cuda_ms(torch, lambda: mc.minhash_inter_long(hs, counts),
+                            reps=1)
     inter_plain = cuda_ms(torch, lambda: mc.minhash_inter_reference(
         hs, counts, pa, pb), reps=1)
-    half = len(ii) // 2
+    half = len(pa) // 2
     inter_lib = cuda_ms(torch, lambda: torch.sort(torch.cat(
         [hs[pa[:half].long()], hs[pb[:half].long()]], dim=1), dim=1),
-        reps=1) * len(ii) / half
+        reps=1) * len(pa) / half
+    del h, pa, pb
     torch.cuda.empty_cache()
-    cnt = counts.long()
-    # hash: the codes read (1 B a position) and the lengths, the uint32
-    # hashes written (4 B a position); inter: the hash rows read once (4 B
-    # a hash), the counts and the pairs (8 B), the counts written (4 B)
-    hash_bytes = (B * L * 5 + B * 4) / HBM_BYTES_PER_S * 1e3
-    hash_ops = int32_bound_ms(B * L * OPS_HASH_POS, clock_mhz)
-    hash_bound = max(hash_bytes, hash_ops)
-    hash_by = "bytes" if hash_bytes >= hash_ops else "operations"
-    inter_bytes = (B * L * 4 + B * 4 + len(ii) * 12) / HBM_BYTES_PER_S * 1e3
-    inter_ops = int32_bound_ms(int((cnt[pa.long()] + cnt[pb.long()]).sum())
-                               * OPS_MERGE_HASH, clock_mhz)
-    say(f"minhash timing, {B} x ~1.4 kb block (k {k}, {len(ii)} pairs): "
-        f"minhash_hash {hash_ms:.3f} ms + torch.sort and dedup "
-        f"{sort_ms:.3f} ms (the sort's share of the hash launch "
-        f"{sort_ms / (hash_ms + sort_ms):.1%}), plain {hash_plain:.3f} ms, "
-        f"torch.sort of the rows {hash_lib:.3f} ms, bound {hash_bound:.4f} "
-        f"ms by {hash_by}; minhash_inter {inter_ms:.3f} ms, plain "
-        f"{inter_plain:.1f} ms, torch.sort of the concatenated pairs "
-        f"{inter_lib:.1f} ms, bound {max(inter_bytes, inter_ops):.4f} ms by "
-        f"{'bytes' if inter_bytes >= inter_ops else 'operations'}")
+    (hash_bound, hash_by), (inter_bound, inter_by) = bounds(
+        B, L, counts.cpu().numpy(), clock_mhz)
+    say(f"minhash timing, {B} x ~1.4 kb block (k {k}, {B * (B - 1) // 2} "
+        f"pairs): hash step (hash, sort, dedup) minhash_hash "
+        f"{hash_ms:.4f} ms, minhash_hash_long {hash_long_ms:.4f} ms, plain "
+        f"{hash_plain:.3f} ms, torch.sort of the rows {hash_lib:.4f} ms, "
+        f"bound {hash_bound:.4f} ms by {hash_by}; minhash_inter (tiles of "
+        f"{mc.tile_rows(B, L)} rows) {inter_ms:.4f} ms, minhash_inter_long "
+        f"{inter_long_ms:.3f} ms, plain {inter_plain:.1f} ms, torch.sort of "
+        f"the concatenated pairs {inter_lib:.1f} ms, bound "
+        f"{inter_bound:.4f} ms by {inter_by}")
+    longs = cases["rows of 20k-50k (past both shared-memory routes)"]
+    lcodes, llens = (torch.from_numpy(a).to(dev)
+                     for a in mc.encode_batch(longs))
+    lhash = cuda_ms(torch, lambda: mc.minhash_hash_long(lcodes, llens, k))
+    lhs, lcounts = mc.minhash_hash_long(lcodes, llens, k)
+    linter = cuda_ms(torch, lambda: mc.minhash_inter_long(lhs, lcounts))
+    say(f"minhash timing, rows of {[len(q) for q in longs]} bp: "
+        f"minhash_hash_long {lhash:.3f} ms, minhash_inter_long "
+        f"{linter:.3f} ms")
+    del lhs, lcounts, lcodes, llens
     pairs = [(s, _mutate(rng, s, 0.05)) for s in seqs[:64]] * (deep // 16)
     packed = ic.pack_pairs([ic._prep_pair(a, b) for a, b in pairs])
     ins = [packed[n].to(dev) for n in ("a", "aoff", "la", "b", "boff", "lb")]
@@ -1369,16 +1428,17 @@ def split_phase(torch, dev, clock_mhz, n_blocks=200, n_pairs=240,
         f"{ident_bound:.4f} ms by operations ({cells} cells x "
         f"{OPS_IDENT_CELL} int32 ops); band 32 (warp kernel) "
         f"{other[32]:.3f} ms, band 288 (block kernel) {other[288]:.3f} ms")
+    hash_fields = {"max_abs_err": 0, "plain_ms": hash_plain,
+                   "bound_ms": hash_bound, "bound_by": hash_by,
+                   "library_ms": hash_lib}
+    inter_fields = {"max_abs_err": 0, "plain_ms": inter_plain,
+                    "bound_ms": inter_bound, "bound_by": inter_by,
+                    "library_ms": inter_lib}
     return {
-        "minhash_hash": {"max_abs_err": 0, "ms": hash_ms,
-                         "plain_ms": hash_plain, "bound_ms": hash_bound,
-                         "bound_by": hash_by, "library_ms": hash_lib},
-        "minhash_inter": {"max_abs_err": 0, "ms": inter_ms,
-                          "plain_ms": inter_plain,
-                          "bound_ms": max(inter_bytes, inter_ops),
-                          "bound_by": ("bytes" if inter_bytes >= inter_ops
-                                       else "operations"),
-                          "library_ms": inter_lib},
+        "minhash_hash": {"ms": hash_ms, **hash_fields},
+        "minhash_hash_long": {"ms": hash_long_ms, **hash_fields},
+        "minhash_inter": {"ms": inter_ms, **inter_fields},
+        "minhash_inter_long": {"ms": inter_long_ms, **inter_fields},
         "ident": {"max_abs_err": 0, "ms": ident_ms, "plain_ms": ident_plain,
                   "bound_ms": ident_bound, "bound_by": "operations",
                   "library_ms": None}}
@@ -1425,17 +1485,37 @@ def split_main_path() -> dict:
     routes on the divergent fixture (make_divergent_gfa over the
     generator's 8 x 20 kb pangenome): exactly the split kernels launched,
     splits in break_stats, and the GFA and MAF bytes of the same run
-    through run_smoothing(cfg, device="cpu") (the plain versions).
-    Returns the split kernels' launches."""
+    through run_smoothing(cfg, device="cpu") (the plain versions).  Each
+    DeviceMinHash.distance_matrix call of the kernels' run is recorded:
+    its rows, longest row, pairs, the launches it made and its host-to-host
+    wall.  Returns the split kernels' launches."""
     import re
+    import statistics
     from smoothxg_tpu_torch import cli
     from smoothxg_tpu_torch.io.synth import make_divergent_gfa
+    from smoothxg_tpu_torch.ops import minhash_cuda as mc
     from smoothxg_tpu_torch.pipeline.run import run_smoothing
     from smoothxg_tpu_torch.testing.synth import write_pangenome
     src = write_pangenome(os.path.join(SMOKE_DIR, "divergent_src.gfa"),
                           **DIVERGENT)
     div = os.path.join(SMOKE_DIR, "divergent.gfa")
     make_divergent_gfa(src, div, tiles=2, seed=7)
+    calls = []                  # (rows, longest, pairs, launches, ms)
+    dmat = mc.DeviceMinHash.distance_matrix
+
+    def dmat_spy(self, seqs, mask=None):
+        el = [len(q) for q, m in zip(seqs, [True] * len(seqs) if mask is None
+                                     else mask) if m]
+        before = (mc.minhash_hash.launches, mc.minhash_inter.launches)
+        t0 = time.perf_counter()
+        out = dmat(self, seqs, mask)
+        ms = (time.perf_counter() - t0) * 1e3
+        calls.append((len(el), max(el, default=0),
+                      len(el) * (len(el) - 1) // 2,
+                      (mc.minhash_hash.launches - before[0],
+                       mc.minhash_inter.launches - before[1]), ms))
+        return out
+
     outs = {}
     for dev in ("cuda", "cpu"):
         out = os.path.join(SMOKE_DIR, f"split_{dev}.gfa")
@@ -1445,7 +1525,11 @@ def split_main_path() -> dict:
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(log):
             if dev == "cuda":
-                (rc, _), launches = drive(lambda: cli.run(argv), SPLIT)
+                mc.DeviceMinHash.distance_matrix = dmat_spy
+                try:
+                    (rc, _), launches = drive(lambda: cli.run(argv), SPLIT)
+                finally:
+                    mc.DeviceMinHash.distance_matrix = dmat
             else:
                 args = cli.build_parser().parse_args(argv)
                 run_smoothing(cli.config_from_args(
@@ -1464,6 +1548,21 @@ def split_main_path() -> dict:
             + (f", launches {launches}" if dev == "cuda" else ""))
         if not split or not max(split):
             fail("the split main path split no block")
+        if dev == "cuda":
+            per = sorted({c[3] for c in calls})
+            walls = [c[4] for c in calls]
+            say(f"split main path MinHash calls: {len(calls)}, rows "
+                f"{min(c[0] for c in calls)}-{max(c[0] for c in calls)}, "
+                f"longest row {max(c[1] for c in calls)} bp, pairs "
+                f"{sum(c[2] for c in calls)} ({min(c[2] for c in calls)}-"
+                f"{max(c[2] for c in calls)} a call), launches a call "
+                f"(minhash_hash, minhash_inter) {per}, wall a call "
+                f"{statistics.fmean(walls):.3f} ms (median "
+                f"{statistics.median(walls):.3f}, {min(walls):.3f}-"
+                f"{max(walls):.3f}, host to host)")
+            if per != [(1, 1)]:
+                fail(f"a MinHash call made other launches than one of each "
+                     f"step: {per}")
     if outs["cuda"] != outs["cpu"]:
         fail("the split main path's kernels and plain versions gave other "
              "bytes")
@@ -1665,6 +1764,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     sgd_main_path(gfa)
     launches.update(split_main_path())
+    # the long-row routes: no main path's rows reach them, and drive holds
+    # every main path to its own kernels
+    launches.update({name: 0 for name in LONG})
 
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "smoothxg_tpu."))
@@ -1680,8 +1782,11 @@ def main() -> None:
                 "sgd_plan": "smoothxg_tpu/ops/sgd.py:49",
                 "minhash_hash": "smoothxg_tpu/ops/minhash_jax.py:107",
                 "minhash_inter": "smoothxg_tpu/ops/minhash_jax.py:139",
+                "minhash_hash_long": "smoothxg_tpu/ops/minhash_jax.py:107",
+                "minhash_inter_long": "smoothxg_tpu/ops/minhash_jax.py:139",
                 "ident": "smoothxg_tpu/ops/ident_jax.py:62"}
     sources = {"minhash_hash": "minhash", "minhash_inter": "minhash",
+               "minhash_hash_long": "minhash", "minhash_inter_long": "minhash",
                "sgd_plan": "sgd"}
     kernels = []
     for n in KERNELS:

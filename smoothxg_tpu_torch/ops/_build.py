@@ -180,8 +180,8 @@ def load() -> ctypes.CDLL:
             lib.sgd_plan_launch.argtypes = [vp] * 7 + [ctypes.c_float, ci,
                                                        vp, vp]
             lib.sgd_chain_launch.argtypes = [vp, vp, ci, vp]
-            lib.minhash_hash_launch.argtypes = [vp] * 3 + [ci] * 3 + [vp]
-            lib.minhash_inter_launch.argtypes = [vp] * 5 + [ci] * 2 + [vp]
+            lib.minhash_hash_launch.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+            lib.minhash_inter_launch.argtypes = [vp] * 3 + [ci] * 3 + [vp]
             lib.ident_launch.argtypes = [vp] * 7 + [ci] * 5 + [vp]
             for fn in ("sgd_plan_launch", "sgd_chain_launch",
                        "minhash_hash_launch",

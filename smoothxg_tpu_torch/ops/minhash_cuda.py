@@ -4,17 +4,21 @@ distances over a block's sequences (the split stage's
 
 Port of smoothxg_tpu/ops/minhash_jax.py (reference: rkmh::hash_sequences +
 rkmh::compare, src/breaks.cpp:378-464).  For k <= 16 a canonical k-mer
-fits 32 bits, so the hash space is uint32 (murmur3's fmix32).  The kernels
-(csrc/minhash.cu) are `minhash_hash` (one thread a position: the canonical
-k-mer and its hash, the 0xFFFFFFFF sentinel where no valid k-mer starts,
-each stored as the int32 sort key `h ^ 0x80000000`, so that torch.sort's
-signed order is the hashes' unsigned order) and `minhash_inter` (one warp a pair: |A ∩ B| by a merge of the two sorted
-unique rows); the per-row sort and dedup between them are torch.sort
-calls, as they were XLA sorts.  CPU tensors run the plain versions,
-`minhash_hash_reference` and `minhash_inter_reference` (the JAX function's
-sort of each pair's concatenation).  The distances are computed on the
-host in float64 from the integer counts, so every route gives the same
-bits.
+fits 32 bits, so the hash space is uint32 (murmur3's fmix32); hashes travel
+as int32 sort keys `h ^ 0x80000000`, so that signed order is the hashes'
+unsigned order.  The kernels (csrc/minhash.cu) are `minhash_hash` (the
+whole of hashes_fn, a block a row: rolling canonical k-mers, fmix32, a
+sort, dedup and compaction in shared memory; `minhash_hash_long` sorts in
+device memory the rows too long for it) and `minhash_inter` (|A ∩ B| of
+every pair, a block a tile of rows staged in shared memory, each pair's
+merge path cut into stretches, a thread a stretch; `minhash_inter_long`, a
+block a pair in staged segments, takes rows too long for a tile);
+`minhash_hash` and `minhash_inter` hand such rows to them by row length
+alone.  CPU tensors run the plain versions,
+`sorted_sets(minhash_hash_reference(...))` and `minhash_inter_reference`
+(the JAX function's sort of each pair's concatenation).  The distances are
+computed on the host in float64 from the integer counts, so every route
+gives the same bits.
 
 The sentinel (ROADMAP C2): the JAX function drops a valid k-mer whose hash
 is 0xFFFFFFFF with the padding, and its numpy mirror kept it.  fmix32 is a
@@ -137,6 +141,36 @@ def host_distance_matrix(seqs: list[bytes | str], k: int = 16,
 # the kernels' wrappers and their plain versions
 # ---------------------------------------------------------------------------
 
+# dynamic shared memory a block of csrc/minhash.cu may take (minhash.cu:
+# SMEM_MAX), and the share a tile of minhash_inter takes so that two blocks
+# fit an SM (228 KB an SM less 1 KB a block, halved)
+SMEM_MAX = 232448 - 1024
+TILE_SMEM = 115712
+TILE_ROWS_MAX = 32
+
+
+def hash_smem(L: int, k: int) -> int:
+    """Shared bytes of minhash_hash on a (B, L) batch: 4 B a k-mer start
+    position and 1 B a code."""
+    return 4 * max(L - (k - 1), 0) + L
+
+
+def tile_smem(R: int, H: int) -> int:
+    """Shared bytes of a minhash_inter tile of R rows of stride H: 2 R slots
+    of round_up(H + 1, 4) int32 words and the pairs' matches (R R)."""
+    return 4 * (2 * R * ((H + 4) // 4 * 4) + R * R)
+
+
+def tile_rows(B: int, H: int) -> int:
+    """Rows R of a minhash_inter tile for B rows of stride H: the most, up
+    to 32 and B, whose tile fits TILE_SMEM; else 1 where a tile of one row
+    a side fits SMEM_MAX; else 0: the long route, a block a pair."""
+    R = min(TILE_ROWS_MAX, B)
+    while R > 1 and tile_smem(R, H) > TILE_SMEM:
+        R -= 1
+    return R if tile_smem(R, H) <= SMEM_MAX else 0
+
+
 def _fmix32_t(x: torch.Tensor) -> torch.Tensor:
     """fmix32 on int64 tensors holding uint32 values."""
     m = 0xFFFFFFFF
@@ -155,10 +189,11 @@ def hash_keys(h: torch.Tensor) -> torch.Tensor:
 
 def minhash_hash_reference(codes: torch.Tensor, lens: torch.Tensor,
                            k: int) -> torch.Tensor:
-    """Plain PyTorch version of csrc/minhash.cu's minhash_hash: (B, L)
-    int32 sort keys (`hash_keys`) of the hash of the canonical k-mer
-    starting at each position or of the sentinel (hashes_fn,
-    smoothxg_tpu/ops/minhash_jax.py:107-128)."""
+    """Per-position hash keys, the first half of hashes_fn: (B, L) int32
+    sort keys (`hash_keys`) of the hash of the canonical k-mer starting at
+    each position or of the sentinel (smoothxg_tpu/ops/minhash_jax.py:
+    107-128).  `sorted_sets` of it is the plain version of the kernels
+    `minhash_hash` and `minhash_hash_long`."""
     B, L = codes.shape
     c = codes.to(torch.int64)
     fwd = torch.zeros((B, L), dtype=torch.int64, device=codes.device)
@@ -175,31 +210,6 @@ def minhash_hash_reference(codes: torch.Tensor, lens: torch.Tensor,
     return hash_keys(torch.where(ok, h, torch.full_like(h, int(SENTINEL))))
 
 
-def minhash_hash(codes: torch.Tensor, lens: torch.Tensor,
-                 k: int) -> torch.Tensor:
-    """Per-position k-mer hash keys, (B, L) int32, of a (B, L) int8 code
-    batch with int32 row lengths.  CUDA tensors launch csrc/minhash.cu (and raise on a
-    launch error); CPU tensors run `minhash_hash_reference`."""
-    if codes.dtype != torch.int8 or codes.dim() != 2 or \
-            lens.dtype != torch.int32 or lens.shape != codes.shape[:1] or \
-            lens.device != codes.device or not codes.is_contiguous():
-        raise ValueError("minhash_hash wants (B, L) int8 codes and (B,) "
-                         "int32 lengths on one device")
-    if not 1 <= k <= 16:
-        raise ValueError(f"uint32 canonical k-mers need 1 <= k <= 16: {k}")
-    if codes.device.type == "cpu":
-        return minhash_hash_reference(codes, lens, k)
-    B, L = codes.shape
-    h = torch.empty((B, L), dtype=torch.int32, device=codes.device)
-    _launch("minhash_hash", codes, codes.data_ptr(), lens.data_ptr(),
-            h.data_ptr(), B, L, k)
-    minhash_hash.launches += 1
-    return h
-
-
-minhash_hash.launches = 0     # kernel launches made by this wrapper
-
-
 def sorted_sets(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Each row's unique non-sentinel hash keys, sorted, then sentinel
     padding; and their counts (int32): hashes_fn's two sorts and dedup
@@ -212,11 +222,82 @@ def sorted_sets(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.sort(hs, dim=1).values, uniq.sum(1, dtype=torch.int32)
 
 
-def minhash_hashes(codes: torch.Tensor, lens: torch.Tensor,
-                   k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """`minhash_hash` then `sorted_sets`: (B, L) int32 sorted unique hash
-    key rows and (B,) int32 counts."""
-    return sorted_sets(minhash_hash(codes, lens, k))
+def _plain_hash(codes, lens, k, counts):
+    hs, c = sorted_sets(minhash_hash_reference(codes, lens, k))
+    if counts is None:
+        return hs, c
+    return hs, counts.copy_(c)
+
+
+def _check_codes(codes: torch.Tensor, lens: torch.Tensor, k: int) -> None:
+    if codes.dtype != torch.int8 or codes.dim() != 2 or \
+            lens.dtype != torch.int32 or lens.shape != codes.shape[:1] or \
+            lens.device != codes.device or not codes.is_contiguous() or \
+            not lens.is_contiguous():
+        raise ValueError("minhash_hash wants (B, L) int8 codes and (B,) "
+                         "int32 lengths on one device")
+    if not 1 <= k <= 16:
+        raise ValueError(f"uint32 canonical k-mers need 1 <= k <= 16: {k}")
+
+
+def _hash_launch(codes, lens, k, device_keys, counts):
+    B, L = codes.shape
+    hs = torch.empty((B, L), dtype=torch.int32, device=codes.device)
+    if counts is None:
+        counts = torch.empty(B, dtype=torch.int32, device=codes.device)
+    elif counts.dtype != torch.int32 or counts.shape != (B,) or \
+            counts.device != codes.device or not counts.is_contiguous():
+        raise ValueError("counts must be a (B,) int32 tensor beside codes")
+    _launch("minhash_hash", codes, codes.data_ptr(), lens.data_ptr(),
+            hs.data_ptr(), counts.data_ptr(), B, L, k, int(device_keys))
+    return hs, counts
+
+
+def minhash_hash(codes: torch.Tensor, lens: torch.Tensor, k: int,
+                 counts: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """hashes_fn of a (B, L) int8 code batch with int32 row lengths: (B, L)
+    int32 sorted unique hash key rows with sentinel padding, and (B,) int32
+    counts (written into `counts` where given).  CUDA tensors launch
+    csrc/minhash.cu's shared-memory route (and raise on a launch error);
+    rows whose keys and codes exceed it (`hash_smem(L, k)` > SMEM_MAX) go
+    to `minhash_hash_long`, by their length alone.  CPU tensors run
+    `sorted_sets(minhash_hash_reference(...))`."""
+    _check_codes(codes, lens, k)
+    if codes.device.type == "cpu":
+        return _plain_hash(codes, lens, k, counts)
+    if hash_smem(codes.shape[1], k) > SMEM_MAX:
+        return minhash_hash_long(codes, lens, k, counts)
+    out = _hash_launch(codes, lens, k, False, counts)
+    minhash_hash.launches += 1
+    return out
+
+
+minhash_hash.launches = 0     # kernel launches made by this wrapper
+
+
+def minhash_hash_long(codes: torch.Tensor, lens: torch.Tensor, k: int,
+                      counts: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`minhash_hash` with each row's keys sorted in its output row in
+    device memory: rows of any length.  CPU tensors run the plain
+    version."""
+    _check_codes(codes, lens, k)
+    if codes.device.type == "cpu":
+        return _plain_hash(codes, lens, k, counts)
+    out = _hash_launch(codes, lens, k, True, counts)
+    minhash_hash_long.launches += 1
+    return out
+
+
+minhash_hash_long.launches = 0
+
+
+def triu_pairs(B: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """np.triu_indices(B, 1) as two int32 tensors."""
+    ii, jj = np.triu_indices(B, 1)
+    return (torch.from_numpy(ii.astype(np.int32)).to(device),
+            torch.from_numpy(jj.astype(np.int32)).to(device))
 
 
 def minhash_inter_reference(hs: torch.Tensor, counts: torch.Tensor,
@@ -224,7 +305,8 @@ def minhash_inter_reference(hs: torch.Tensor, counts: torch.Tensor,
                             chunk: int = 4096) -> torch.Tensor:
     """Plain PyTorch version of minhash_inter: the number of equal
     neighbours (not the sentinel) in each pair's sorted concatenation
-    (inter_fn, minhash_jax.py:139-146).  (P,) int32."""
+    (inter_fn, minhash_jax.py:139-146) for the row pairs (pa[t], pb[t]).
+    (P,) int32."""
     out = torch.empty(pa.numel(), dtype=torch.int32, device=hs.device)
     for s in range(0, pa.numel(), chunk):
         a, b = hs[pa[s:s + chunk].long()], hs[pb[s:s + chunk].long()]
@@ -234,28 +316,69 @@ def minhash_inter_reference(hs: torch.Tensor, counts: torch.Tensor,
     return out
 
 
-def minhash_inter(hs: torch.Tensor, counts: torch.Tensor, pa: torch.Tensor,
-                  pb: torch.Tensor) -> torch.Tensor:
-    """|A ∩ B| of the row pairs (pa[t], pb[t]) of `minhash_hashes`'
-    output.  CUDA tensors launch csrc/minhash.cu (and raise on a launch
-    error); CPU tensors run `minhash_inter_reference`."""
-    if hs.dtype != torch.int32 or hs.dim() != 2 or not hs.is_contiguous() \
-            or counts.dtype != torch.int32 or pa.dtype != torch.int32 \
-            or pb.dtype != torch.int32 or pa.shape != pb.shape \
-            or len({t.device for t in (hs, counts, pa, pb)}) != 1:
-        raise ValueError("minhash_inter wants (B, H) int32 rows, (B,) int32 "
-                         "counts and (P,) int32 pairs on one device")
-    if hs.device.type == "cpu":
-        return minhash_inter_reference(hs, counts, pa, pb)
-    inter = torch.empty(pa.numel(), dtype=torch.int32, device=hs.device)
+def _plain_inter(hs, counts, out):
+    got = minhash_inter_reference(hs, counts, *triu_pairs(hs.shape[0]))
+    return got if out is None else out.copy_(got)
+
+
+def _inter_launch(hs, counts, R, out):
+    B, H = hs.shape
+    P = B * (B - 1) // 2
+    if out is None:
+        out = torch.empty(P, dtype=torch.int32, device=hs.device)
+    elif out.dtype != torch.int32 or out.shape != (P,) or \
+            out.device != hs.device or not out.is_contiguous():
+        raise ValueError("out must be a (B (B - 1) / 2,) int32 tensor "
+                         "beside hs")
     _launch("minhash_inter", hs, hs.data_ptr(), counts.data_ptr(),
-            pa.data_ptr(), pb.data_ptr(), inter.data_ptr(), hs.shape[1],
-            pa.numel())
+            out.data_ptr(), B, H, R)
+    return out
+
+
+def _check_rows(hs: torch.Tensor, counts: torch.Tensor) -> None:
+    if hs.dtype != torch.int32 or hs.dim() != 2 or not hs.is_contiguous() \
+            or counts.dtype != torch.int32 or counts.shape != hs.shape[:1] \
+            or not counts.is_contiguous() or counts.device != hs.device:
+        raise ValueError("minhash_inter wants (B, H) int32 rows and (B,) "
+                         "int32 counts on one device")
+
+
+def minhash_inter(hs: torch.Tensor, counts: torch.Tensor,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """|A ∩ B| of every pair a < b of `minhash_hash`'s rows, (B (B - 1) /
+    2,) int32 in np.triu_indices order (written into `out` where given).
+    CUDA tensors launch csrc/minhash.cu's tile kernel with tiles of
+    `tile_rows(B, H)` rows (and raise on a launch error); rows too long for
+    a tile (`tile_rows` 0) go to `minhash_inter_long`, by their length
+    alone.  CPU tensors run `minhash_inter_reference` on the triangle's
+    pairs."""
+    _check_rows(hs, counts)
+    if hs.device.type == "cpu":
+        return _plain_inter(hs, counts, out)
+    R = tile_rows(*hs.shape)
+    if R == 0:
+        return minhash_inter_long(hs, counts, out)
+    res = _inter_launch(hs, counts, R, out)
     minhash_inter.launches += 1
-    return inter
+    return res
 
 
 minhash_inter.launches = 0    # kernel launches made by this wrapper
+
+
+def minhash_inter_long(hs: torch.Tensor, counts: torch.Tensor,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+    """`minhash_inter` as a block a pair, its merge staged in segments:
+    rows of any length.  CPU tensors run the plain version."""
+    _check_rows(hs, counts)
+    if hs.device.type == "cpu":
+        return _plain_inter(hs, counts, out)
+    res = _inter_launch(hs, counts, 0, out)
+    minhash_inter_long.launches += 1
+    return res
+
+
+minhash_inter_long.launches = 0
 
 
 def _launch(name: str, like: torch.Tensor, *args) -> None:
@@ -271,6 +394,20 @@ def _launch(name: str, like: torch.Tensor, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({lib.poa_win_error_string(rc).decode()})")
+
+
+def mash_distances(inter: np.ndarray, ca: np.ndarray, cb: np.ndarray,
+                   k: int) -> np.ndarray:
+    """`mash_distance_from_counts` over arrays at once: the same float64
+    operations in the same order, so the same bits."""
+    inter, ca, cb = (np.asarray(v, dtype=np.int64) for v in (inter, ca, cb))
+    live = (ca != 0) & (cb != 0) & (inter != 0)
+    j = np.divide(inter, ca + cb - inter, out=np.ones(len(inter)),
+                  where=live)
+    d = -np.log(2.0 * j / (1.0 + j)) / k
+    d = np.where(0.0 > d, 0.0, d)           # max(d, 0.0), -0.0 kept
+    d = np.where(1.0 < d, 1.0, d)           # min(d, 1.0)
+    return np.where(live, d, 1.0)
 
 
 class DeviceMinHash:
@@ -290,7 +427,9 @@ class DeviceMinHash:
     def distance_matrix(self, seqs: list[bytes | str],
                         mask: np.ndarray | None = None) -> np.ndarray:
         """[n, n] float64 mash distances (diagonal 0).  mask: boolean
-        per-seq eligibility; ineligible rows/cols stay 1.0."""
+        per-seq eligibility; ineligible rows/cols stay 1.0.  One copy to
+        the device (lengths and codes packed), one launch of each step,
+        one copy back (counts and intersections)."""
         n = len(seqs)
         out = np.ones((n, n), dtype=np.float64)
         np.fill_diagonal(out, 0.0)
@@ -301,17 +440,21 @@ class DeviceMinHash:
         if len(idx) < 2:
             return out
         codes, lens = encode_batch([seqs[i] for i in idx])
-        dev = self.device
-        hs, counts = minhash_hashes(torch.from_numpy(codes).to(dev),
-                                    torch.from_numpy(lens).to(dev), self.k)
-        ii, jj = np.triu_indices(len(idx), 1)
-        inters = minhash_inter(
-            hs, counts, torch.from_numpy(ii.astype(np.int32)).to(dev),
-            torch.from_numpy(jj.astype(np.int32)).to(dev)).cpu().numpy()
-        counts = counts.cpu().numpy()
-        for t in range(len(ii)):
-            a, b = int(ii[t]), int(jj[t])
-            d = mash_distance_from_counts(
-                int(inters[t]), int(counts[a]), int(counts[b]), self.k)
-            out[idx[a], idx[b]] = out[idx[b], idx[a]] = d
+        B, L = codes.shape
+        packed = np.empty(4 * B + B * L, dtype=np.int8)
+        packed[:4 * B] = lens.view(np.int8)
+        packed[4 * B:] = codes.ravel()
+        dev = torch.from_numpy(packed).to(self.device)
+        P = B * (B - 1) // 2
+        res = torch.empty(B + P, dtype=torch.int32, device=self.device)
+        hs, counts = minhash_hash(dev[4 * B:].view(B, L),
+                                  dev[:4 * B].view(torch.int32), self.k,
+                                  counts=res[:B])
+        minhash_inter(hs, counts, out=res[B:])
+        res = res.cpu().numpy()
+        counts, inters = res[:B], res[B:]
+        ii, jj = np.triu_indices(B, 1)
+        d = mash_distances(inters, counts[ii], counts[jj], self.k)
+        out[idx[ii], idx[jj]] = d
+        out[idx[jj], idx[ii]] = d
         return out

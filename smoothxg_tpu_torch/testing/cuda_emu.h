@@ -106,6 +106,10 @@ inline const char* cudaGetErrorString(int) { return "no error"; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int atomicAdd(int* p, int v) {
+    return std::atomic_ref<int>(*p).fetch_add(v);
+}
 inline unsigned __umulhi(unsigned a, unsigned b) {
     return (unsigned)(((unsigned long long)a * b) >> 32);
 }

@@ -18,7 +18,8 @@ one-tile rows with the ring, sequence and row tables in shared memory,
 shared bytes, blocks an SM).
 `run_probe(exe, family, ...)` launches `probe_<family>_launch` of probes.cu
 and returns its 128 outputs.  `run_sgd` (sgd.cu's plan and chain, or the
-chain alone on a given plan), `run_minhash_hash`, `run_minhash_inter` and
+chain alone on a given plan), `run_minhash_hash` (either route),
+`run_minhash_inter` (tiles of given rows, or the long route) and
 `run_ident` (ident.cu's warp or block kernel, by the band) launch the
 entries of sgd.cu, minhash.cu and ident.cu on the inputs their wrappers
 take.  A race between threads shows as a hang, so
@@ -207,28 +208,28 @@ _MINHASH_MAIN = _READ + r"""
 int main(int argc, char** argv) {
     FILE* f = std::fopen(argv[1], "rb");
     auto hd = rd<int32_t>(f, 5);
-    const int mode = hd[0], B = hd[1], L = hd[2], k = hd[3], P = hd[4];
+    // mode 0: hash (x = device_keys), 1: intersections (x = tile rows R)
+    const int mode = hd[0], B = hd[1], L = hd[2], k = hd[3], x = hd[4];
     int rc = 1;
     if (mode == 0) {
         auto codes = rd<int8_t>(f, (size_t)B * L);
         auto lens = rd<int32_t>(f, B);
         std::fclose(f);
-        std::vector<int32_t> h((size_t)B * L, 7);
-        rc = minhash_hash_launch(codes.data(), lens.data(), h.data(), B, L, k,
-                                 nullptr);
+        std::vector<int32_t> hs((size_t)B * L, 7), counts(B, 7);
+        rc = minhash_hash_launch(codes.data(), lens.data(), hs.data(),
+                                 counts.data(), B, L, k, x, nullptr);
         f = std::fopen(argv[2], "wb");
-        wr(f, h, h.size());
+        wr(f, hs, hs.size());
+        wr(f, counts, counts.size());
     } else {
         auto hs = rd<int32_t>(f, (size_t)B * L);
         auto counts = rd<int32_t>(f, B);
-        auto pa = rd<int32_t>(f, P);
-        auto pb = rd<int32_t>(f, P);
         std::fclose(f);
-        std::vector<int32_t> inter(P, 7);
-        rc = minhash_inter_launch(hs.data(), counts.data(), pa.data(),
-                                  pb.data(), inter.data(), L, P, nullptr);
+        std::vector<int32_t> inter((size_t)B * (B - 1) / 2 + 1, 7);
+        rc = minhash_inter_launch(hs.data(), counts.data(), inter.data(), B,
+                                  L, x, nullptr);
         f = std::fopen(argv[2], "wb");
-        wr(f, inter, inter.size());
+        wr(f, inter, inter.size() - 1);
     }
     std::fclose(f);
     return rc;
@@ -413,20 +414,24 @@ def run_sgd(exe: str, x, i1, z, sgn, node, pos, start, count, eta: float,
             torch.from_numpy(np.frombuffer(raw[4 * n:], np.int32).copy()))
 
 
-def run_minhash_hash(exe: str, codes, lens, k: int,
-                     timeout: float = 120.0) -> torch.Tensor:
-    """minhash.cu's minhash_hash_launch; returns h (B, L) int32."""
+def run_minhash_hash(exe: str, codes, lens, k: int, device_keys=False,
+                     timeout: float = 120.0):
+    """minhash.cu's minhash_hash_launch (the shared-memory route, or the
+    device-memory one); returns (hs (B, L), counts (B,)) int32."""
     B, L = codes.shape
-    raw = _run_raw(exe, [0, B, L, k, 0], (codes, lens), timeout)
-    return torch.from_numpy(np.frombuffer(raw, np.int32).reshape(B, L).copy())
+    raw = np.frombuffer(_run_raw(exe, [0, B, L, k, int(device_keys)],
+                                 (codes, lens), timeout), np.int32)
+    return (torch.from_numpy(raw[:B * L].reshape(B, L).copy()),
+            torch.from_numpy(raw[B * L:].copy()))
 
 
-def run_minhash_inter(exe: str, hs, counts, pa, pb,
+def run_minhash_inter(exe: str, hs, counts, rows: int,
                       timeout: float = 120.0) -> torch.Tensor:
-    """minhash.cu's minhash_inter_launch; returns inter (P,) int32."""
+    """minhash.cu's minhash_inter_launch with tiles of `rows` rows (0: a
+    block a pair, in segments); returns the (B (B - 1) / 2,) int32
+    intersections in np.triu_indices order."""
     B, H = hs.shape
-    raw = _run_raw(exe, [1, B, H, 0, pa.numel()], (hs, counts, pa, pb),
-                   timeout)
+    raw = _run_raw(exe, [1, B, H, 0, rows], (hs, counts), timeout)
     return torch.from_numpy(np.frombuffer(raw, np.int32).copy())
 
 

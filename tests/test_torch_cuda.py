@@ -303,14 +303,14 @@ def test_split_kernels_match_plain_versions(cuda_device):
     seqs += [mc.SENTINEL_KMER + base, "ACGT" * 30, ""]
     codes, lens = (torch.from_numpy(a).to(cuda_device)
                    for a in mc.encode_batch(seqs))
-    h = mc.minhash_hash(codes, lens, 16)
-    assert torch.equal(h, mc.minhash_hash_reference(codes, lens, 16))
-    hs, counts = mc.sorted_sets(h)
-    ii, jj = np.triu_indices(len(seqs), 1)
-    pa = torch.from_numpy(ii.astype(np.int32)).to(cuda_device)
-    pb = torch.from_numpy(jj.astype(np.int32)).to(cuda_device)
-    assert torch.equal(mc.minhash_inter(hs, counts, pa, pb),
-                       mc.minhash_inter_reference(hs, counts, pa, pb))
+    want = mc.sorted_sets(mc.minhash_hash_reference(codes, lens, 16))
+    for route in (mc.minhash_hash, mc.minhash_hash_long):
+        hs, counts = route(codes, lens, 16)
+        assert torch.equal(hs, want[0]) and torch.equal(counts, want[1])
+    ref = mc.minhash_inter_reference(hs, counts,
+                                     *mc.triu_pairs(len(seqs), cuda_device))
+    assert torch.equal(mc.minhash_inter(hs, counts), ref)
+    assert torch.equal(mc.minhash_inter_long(hs, counts), ref)
     assert np.array_equal(
         mc.DeviceMinHash(16, device=cuda_device).distance_matrix(seqs),
         mc.host_distance_matrix(seqs, 16))
