@@ -5,9 +5,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, one line each or more; any failure exits nonzero and prints no
 result:
-  1. device: CUDA required; the card's name, power limit and SM clock.
+  1. device: CUDA required; the card's name, power limit, SM clock and
+     compute mode (phase 20 puts two processes on it).
   2. build:  csrc/*.cu (poa_win, poa_round, poa_code, poa_stacked,
-     probes, sgd, minhash, ident) compiled from the checkout, one nvcc process per source
+     poa_batch, probes, sgd, minhash, ident) compiled from the checkout, one nvcc process per source
      started together and one link (each kernel's ptxas registers: every
      instantiation of poa_win and poa_round with its stack and spills, the
      stage-0 instantiations of poa_code and poa_stacked, every stage, the
@@ -95,9 +96,28 @@ result:
      generator's 8 x 20 kb pangenome): blocks split, exactly the split
      kernels launched (the MinHash calls' shapes, launches and walls a
      call printed), and the bytes of run_smoothing(cfg, device="cpu").
-Every main path (4, 7, 9, 11, the probes' phase 12, 14's prep and 16)
-runs with all thirteen wrappers' launch counts set to 0 just before it and
-read just after: its own kernels must have launched and no other.  Then the
+ 17. batch kernel: 203 seeded round tasks (local and global, the XLA
+     engine's slot buckets P = 4, 8 and 16, V and L up to ~2,000, and a
+     local query of 8,400+ bases, past the XLA function's int16 buckets) through csrc/poa_batch.cu and its plain PyTorch
+     version (exact equality on out, outpos and bv), every 8th task's
+     score held against the oracle poa_host.fill; kernel time on the round
+     timing task (1 and 132 copies) against the plain version's, the
+     launch geometry and the ptxas registers, stack and spills.
+ 18. jax main path: the port CLI with --engine jax and phase 4's flags;
+     >= 90% of the round tasks on poa_batch, GFA and MAF sha256 equal to
+     phase 5's.
+ 19. sharding: parallel/mesh.sharded_poa_round and sharded_pallas_round
+     over [card 0, card 0] (and over every visible card when there are
+     more) equal to one launch; TorchPOAEngine(devices=[card 0, card 0])
+     on phase 3's blocks (and the code and stacked kernels on its first
+     group) equal to one shard.
+ 20. two ranks: two port CLI processes (--dist-size 2, gloo on a free
+     local port, -t 4, phase 4's other flags; rank r on card r mod the
+     visible cards, so both share a lone card); both exit 0, rank 0's GFA
+     and MAF sha256 equal to phase 5's.
+Every main path (4, 7, 9, 11, the probes' phase 12, 14's prep, 16 and
+18) runs with all sixteen wrappers' launch counts set to 0 just before it
+and read just after: its own kernels must have launched and no other.  Then the
 kernels' JSON line, the nvidia-smi line and the result line.  No module
 of jax or of the JAX package may be loaded in this process.
 """
@@ -221,7 +241,7 @@ SPLIT = ("minhash_hash", "minhash_inter", "ident")
 # the split kernels' routes for rows past shared memory: on no main path
 LONG = ("minhash_hash_long", "minhash_inter_long")
 KERNELS = (("poa_win", "poa_round", "poa_code", "poa_stacked") + PROBES
-           + ("sgd", "sgd_plan") + SPLIT + LONG)
+           + ("sgd", "sgd_plan") + SPLIT + LONG + ("poa_batch",))
 
 
 def wrappers() -> dict:
@@ -231,6 +251,7 @@ def wrappers() -> dict:
                                                      minhash_hash_long,
                                                      minhash_inter,
                                                      minhash_inter_long)
+    from smoothxg_tpu_torch.ops.poa_batch import poa_batch
     from smoothxg_tpu_torch.ops.poa_code import poa_code
     from smoothxg_tpu_torch.ops.poa_round import poa_round
     from smoothxg_tpu_torch.ops.poa_stacked import poa_stacked
@@ -243,7 +264,8 @@ def wrappers() -> dict:
             "minhash_hash": minhash_hash,
             "minhash_inter": minhash_inter, "ident": ident_counts,
             "minhash_hash_long": minhash_hash_long,
-            "minhash_inter_long": minhash_inter_long}
+            "minhash_inter_long": minhash_inter_long,
+            "poa_batch": poa_batch}
 
 
 def drive(run, own):
@@ -714,7 +736,7 @@ def block_main_path(tag: str, own: str, run, clock_mhz) -> int:
         VW, LW, W = self.tiers[ti]
         line = geometry_line(own, len(chunk),
                              self._kernel(VW, LW, W, local, banded)[1],
-                             stride_for(out[4], LW))
+                             stride_for(out[-1], LW))
         geos[line] = geos.get(line, 0) + 1
         return out
 
@@ -942,11 +964,11 @@ def kernel_registers(log: str) -> dict:
     SMEM_TABLES> as (stage, 'shared' / 'device'), poa_win_kernel<
     SMEM_TABLES, BANDED> as ('shared' / 'device', 'full' / 'banded'),
     poa_round_kernel<RING, TSMEM> as ('ring' / 'tiled', 'shared' /
-    'device')."""
+    'device'), poa_batch_kernel<LOCAL> as ('local' / 'global',)."""
     import re
     out = {}
     for e, r in ptxas_registers(log).items():
-        m = re.search(r"(poa_(?:win|round|code|stacked))_kernelI"
+        m = re.search(r"(poa_(?:win|round|code|stacked|batch))_kernelI"
                       r"((?:L[bi]\d+E)+)E", e)
         if not m:
             continue
@@ -957,6 +979,8 @@ def kernel_registers(log: str) -> dict:
             key = (args[0], where[args[1]])
         elif name == "poa_win":         # <SMEM_TABLES, BANDED>
             key = (where[args[0]], ("full", "banded")[args[1]])
+        elif name == "poa_batch":       # <LOCAL>
+            key = (("global", "local")[args[0]],)
         else:
             key = (("tiled", "ring")[args[0]], where[args[1]])
         out[(name, key)] = r
@@ -974,7 +998,7 @@ def build_summary(log: str) -> str:
     regs = ptxas_registers(log)
     inst = kernel_registers(log)
     parts = []
-    for name in KERNELS[:4]:
+    for name in (*KERNELS[:4], "poa_batch"):
         mine = {k: r for (n, k), r in inst.items() if n == name}
         if name in ("poa_code", "poa_stacked"):
             parts.append(
@@ -1569,6 +1593,322 @@ def split_main_path() -> dict:
     return launches
 
 
+# phase 17's seeded plan: (local, tasks, (min L, max L), sequences in the
+# graph + 1, div), then fan-in tasks and the long local query
+BATCH_PLAN = ((True, 72, (150, 500), (3, 6), 0.03),
+              (False, 72, (150, 500), (3, 6), 0.03),
+              (True, 12, (600, 1200), (4, 8), 0.05),
+              (False, 12, (600, 1200), (4, 8), 0.05),
+              (True, 3, (1800, 2000), (3, 5), 0.05),
+              (False, 3, (1800, 2000), (3, 5), 0.05))
+
+
+def batch_groups(rng) -> list:
+    """Phase 17's task groups, [(local, P or None, [(graph, query,
+    params), ...]), ...]: BATCH_PLAN (P the slot bucket of each group's
+    largest in-degree), fan-in tasks of in-degree 2-4, 5-8 and 9-15 packed
+    at P = 4, 8 and 16, local and global, and a local query of 8,400+
+    bases that ends in the graph's sequence."""
+    import numpy as np
+    from smoothxg_tpu_torch.ops.poa_host import POAParams
+    from smoothxg_tpu_torch.testing.synth import (make_fan_in_task,
+                                                  make_round_task)
+    groups = []
+    for local, nt, (lo, hi), (smin, smax), div in BATCH_PLAN:
+        p = POAParams(local=local)
+        groups.append((local, None, [make_round_task(
+            rng, int(rng.integers(lo, hi)), int(rng.integers(smin, smax + 1)),
+            div, p) for _ in range(nt)]))
+    for local in (True, False):
+        p = POAParams(local=local)
+        for P, widths in ((4, range(2, 5)), (8, range(5, 9)),
+                          (16, range(9, 16))):
+            groups.append((local, P, [make_fan_in_task(rng, w, 200, p)
+                                      for w in widths]))
+    p = POAParams(local=True)
+    g, q, _ = make_round_task(rng, 200, 2, 0.03, p)
+    groups.append((True, None, [(g, np.concatenate(
+        [rng.choice(np.frombuffer(b"ACGT", np.uint8), 8300), q]), p)]))
+    return groups
+
+
+def oracle_score(graph, seq, p) -> int:
+    """The best score of poa_host's fill: the best cell (local), the best
+    sink row at the last column (global)."""
+    from smoothxg_tpu_torch.ops import poa_host
+    H, _, _, _, row_of, _ = poa_host.fill(graph, seq, p)
+    if p.local:
+        return int(H.max())
+    return max(int(H[row_of[v], len(seq)]) for v in graph.topo_order()
+               if not graph.succs[v])
+
+
+def batch_geometry_line(B: int, Vp: int, Lp: int) -> str:
+    """A poa_batch launch's geometry and the ptxas registers of both
+    instantiations."""
+    from smoothxg_tpu_torch.ops import _build
+    from smoothxg_tpu_torch.ops.poa_batch import geometry
+    g = geometry(B, Vp, Lp)
+    regs = kernel_registers(_build.build_log["ptxas"])
+    return (f"{g['grid']} blocks of {g['threads']} threads (a task a "
+            f"block), rows of {g['tiles']} tile(s) of {g['tile']} columns, "
+            f"scratch {g['scratch_bytes'] / 1e6:.1f} MB in device memory, "
+            f"static shared memory; " + "; ".join(
+                f"<{k}>: {used(regs.get(('poa_batch', (k,)), ''))} "
+                f"registers, {spilled(regs.get(('poa_batch', (k,)), ''))}"
+                for k in ("local", "global")))
+
+
+def batch_phase(torch, dev, clock_mhz):
+    """Phase 17.  Returns the batch kernel's JSON entry fields."""
+    import numpy as np
+    from smoothxg_tpu_torch.ops.poa_batch import (pack_tasks, poa_batch,
+                                                  poa_batch_reference)
+    from smoothxg_tpu_torch.tools.time_chase import round_timing_task
+    rng = np.random.default_rng(SEED + 4)
+    n_tasks = n_oracle = max_err = 0
+    slots: set = set()
+    vmax = lmax = 0
+    for local, P, tasks in batch_groups(rng):
+        ins, _ = pack_tasks(tasks, P)
+        got = poa_batch(*(x.to(dev) for x in ins), local)
+        torch.cuda.synchronize()
+        got = [x.cpu() for x in got]
+        t0 = time.perf_counter()
+        want = poa_batch_reference(*ins, local)
+        plain_s = time.perf_counter() - t0
+        for name, g, w in zip(("out", "outpos", "bv"), got, want):
+            err = int((g.long() - w.long()).abs().max())
+            max_err = max(max_err, err)
+            if err:
+                fail(f"batch kernel != plain version on {name} (local="
+                     f"{local}, P {ins[1].shape[2]}, V {ins[0].shape[0]})")
+        for b in range(0, len(tasks), 8):
+            if int(got[2][b]) != oracle_score(*tasks[b]):
+                fail(f"batch kernel score != poa_host.fill on task {b}")
+            n_oracle += 1
+        Vp, Lp = ins[0].shape[0], ins[2].shape[1]
+        slots.add(ins[1].shape[2])
+        vmax, lmax = max(vmax, Vp), max(lmax, Lp)
+        n_tasks += len(tasks)
+        say(f"batch kernel local={local} P={ins[1].shape[2]}: {len(tasks)} "
+            f"tasks (V up to {Vp}, L up to {Lp}) equal to the plain version "
+            f"({plain_s:.1f} s); geometry "
+            + batch_geometry_line(len(tasks), Vp, Lp))
+    if n_tasks < 200:
+        fail(f"only {n_tasks} batch tasks compared")
+    if not {4, 8, 16} <= slots or lmax <= 8200:
+        fail(f"slots covered {sorted(slots)}, longest query {lmax}")
+
+    # timing on phase 6's main-path task shape (V ~1,200, L ~1,000)
+    task = round_timing_task()
+    cpu_ins, _ = pack_tasks([task])
+    t0 = time.perf_counter()
+    want = poa_batch_reference(*cpu_ins, True)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ins = [x.to(dev) for x in cpu_ins]
+    ms = cuda_ms(torch, lambda: poa_batch(*ins, True), reps=5)
+    got = poa_batch(*ins, True)
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        fail("batch kernel != plain version on the timing task")
+    nb = 132
+    insB = [x.repeat_interleave(nb, dim=1 if x.dim() >= 2 and k < 2 else 0)
+            .contiguous() for k, x in enumerate(ins)]
+    batch_ms = cuda_ms(torch, lambda: poa_batch(*insB, True), reps=1)
+    cells, pcells = round_dp_work(task[0], len(task[1]))
+    bound_ms = int32_bound_ms(fill_ops(cells, pcells, True), clock_mhz)
+    say(f"batch kernel timing, one main-path task (V={task[0].n_nodes()}, "
+        f"L={len(task[1])}, local): kernel {ms:.3f} ms, plain version "
+        f"{plain_ms:.1f} ms; {nb}-task launch {batch_ms:.2f} ms "
+        f"({nb * 1e3 / batch_ms:.1f} tasks/s); bound {bound_ms:.5f} ms "
+        f"({cells} DP cells, {pcells} extra pred cells); geometry "
+        + batch_geometry_line(nb, cpu_ins[0].shape[0], cpu_ins[2].shape[1]))
+    say(f"batch kernel vs plain version: {n_tasks} tasks equal (max abs err "
+        f"{max_err}, tolerance 0: all outputs are integers), {n_oracle} "
+        f"scores equal to poa_host.fill; slot buckets {sorted(slots)}, V up "
+        f"to {vmax}, L up to {lmax}")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations",
+            "library_ms": None}
+
+
+def jax_main_path(gfa: str, ref_out: str, ref_maf: str, clock_mhz) -> int:
+    """Phase 18: the port CLI with --engine jax and phase 4's flags,
+    counted by `drive`; a spy keeps each launch's DP work and shape.
+    Returns poa_batch's launches."""
+    from smoothxg_tpu_torch import cli
+    from smoothxg_tpu_torch.ops.poa_batch import TorchBatchPOAEngine
+    out, maf = (os.path.join(SMOKE_DIR, f"jax.{x}") for x in ("gfa", "maf"))
+    work, shapes = [], []
+    run_chunk = TorchBatchPOAEngine._run_chunk
+
+    def spy(self, tasks, chunk, local, results, orders):
+        work.extend((*round_dp_work(tasks[t][0], len(tasks[t][1])), local)
+                    for t in chunk)
+        shapes.append((len(chunk), max(tasks[t][0].n_nodes() for t in chunk),
+                       max(len(tasks[t][1]) for t in chunk)))
+        return run_chunk(self, tasks, chunk, local, results, orders)
+
+    TorchBatchPOAEngine._run_chunk = spy
+    log = Tee(sys.stderr)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(log):
+            (rc, engine), launches = drive(
+                lambda: cli.run(["-g", gfa, "-o", out, "-m", maf,
+                                 *MAIN_FLAGS, "--engine", "jax"]),
+                "poa_batch")
+    finally:
+        TorchBatchPOAEngine._run_chunk = run_chunk
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"port CLI --engine jax exited {rc}")
+    st = engine.stats()
+    tasks = st["device_tasks"] + st["fallbacks"]
+    cells, pcells = (sum(w[i] for w in work) for i in (0, 1))
+    bound = int32_bound_ms(sum(fill_ops(*w) for w in work), clock_mhz)
+    say(f"jax main path (--engine jax): {wall:.2f} s wall, {tasks} round "
+        f"tasks, {st['device_tasks']} on the kernel, {launches} launches, "
+        f"device_wait_s {st['device_wait_s']} "
+        f"({'; '.join(smoothing_phases(log.getvalue()))}); stats "
+        f"{json.dumps(st)}; DP work of its {len(work)} launched tasks "
+        f"{cells} cells, {pcells} extra pred cells, bound {bound:.3f} ms")
+    Bs, Vs, Ls = zip(*shapes)
+    say(f"jax main path launch geometry: {len(shapes)} launches of "
+        f"{min(Bs)}-{max(Bs)} tasks, V {min(Vs)}-{max(Vs)}, L "
+        f"{min(Ls)}-{max(Ls)}; the largest: "
+        + batch_geometry_line(*max(shapes, key=lambda x: x[0] * x[1] * x[2])))
+    if st["device_tasks"] < 0.9 * tasks:
+        fail(f"only {st['device_tasks']}/{tasks} round tasks ran on the "
+             f"kernel")
+    same_bytes("jax main path", out, maf, ref_out, ref_maf)
+    return launches
+
+
+def shard_phase(torch, dev) -> None:
+    """Phase 19: the sharded round functions and TorchPOAEngine(devices=)
+    against one launch or one shard, over [card 0, card 0] and, with more
+    cards, over all of them."""
+    import numpy as np
+    from smoothxg_tpu_torch.ops import poa_batch as pb
+    from smoothxg_tpu_torch.ops import poa_round as pr
+    from smoothxg_tpu_torch.ops.poa_engine import POAParams, TorchPOAEngine
+    from smoothxg_tpu_torch.parallel.mesh import (sharded_pallas_round,
+                                                  sharded_poa_round)
+    from smoothxg_tpu_torch.testing.synth import make_round_task
+    from smoothxg_tpu_torch.tools.time_chase import (PHASE3_PLAN,
+                                                     phase3_blocks)
+    n = torch.cuda.device_count()
+    meshes = [[dev, dev]] + ([[torch.device("cuda", k) for k in range(n)]]
+                             if n > 1 else [])
+    rng = np.random.default_rng(SEED + 5)
+    tasks = [make_round_task(rng, int(rng.integers(200, 700)),
+                             int(rng.integers(3, 9)), 0.03,
+                             POAParams(local=local))
+             for local in (True, False) for _ in range(24)]
+    for local in (True, False):
+        mine = [t for t in tasks if t[2].local == local]
+        ins, _ = pb.pack_tasks(mine)
+        one = [x.cpu() for x in pb.poa_batch(*(x.to(dev) for x in ins),
+                                             local)]
+        rins, _ = pr.pack_tasks(mine)
+        pallas = pr.to_pallas_inputs(*rins)
+        VW, LW, P = pallas[3].shape[1] * 128 // (2 + rins[5].shape[2]), \
+            pallas[4].shape[2], rins[5].shape[2]
+        rone = [x.cpu() for x in pr.poa_round(
+            *(x.to(dev) for x in pr.from_pallas_layout(*pallas, P)), local)]
+        for mesh in meshes:
+            got = sharded_poa_round(mesh, *ins, local=local)
+            if not all(torch.equal(g.cpu(), w) for g, w in zip(got, one)):
+                fail(f"sharded_poa_round over {mesh} != one launch")
+            got = sharded_pallas_round(mesh, *pallas, VW=VW, LW=LW, P=P,
+                                       local=local)
+            if not all(torch.equal(g.cpu(), w) for g, w in zip(got, rone)):
+                fail(f"sharded_pallas_round over {mesh} != one launch")
+        say(f"sharding: {len(mine)} round tasks (local={local}) through "
+            f"sharded_poa_round and sharded_pallas_round over "
+            f"{' and '.join(str([str(d) for d in m]) for m in meshes)} "
+            f"equal to one launch of poa_batch / poa_round")
+
+    groups = phase3_blocks(np.random.default_rng(SEED))
+    blocks = [(sq, [1] * len(sq), POAParams(local=local,
+                                            wb=311 if banded else -1))
+              for (_, local, banded, *_), grp in zip(PHASE3_PLAN, groups)
+              for sq in grp]
+
+    def raw(engine, blks):
+        out = {}
+        for i, kind, payload in engine.poa_block_batch_iter(blks):
+            out[i] = ((kind, payload.base, payload.seq_paths)
+                      if kind == "graph" else
+                      (kind, *(np.asarray(x).tolist() for x in payload[:3]),
+                       [np.asarray(x).tolist() for x in payload[3]],
+                       payload[4]))
+        return out
+
+    for tag, kw, blks in (("win", {}, blocks),
+                          ("code", {"shape": (8704, 4096)},
+                           blocks[:PHASE3_PLAN[0][3]]),
+                          ("stacked", {"kernel": "stacked"},
+                           blocks[:PHASE3_PLAN[0][3]])):
+        want = raw(TorchPOAEngine(device=dev, **kw), blks)
+        for mesh in meshes:
+            eng = TorchPOAEngine(device=dev, devices=mesh, **kw)
+            if raw(eng, blks) != want:
+                fail(f"TorchPOAEngine({tag}, devices={mesh}) != one shard")
+        say(f"sharding: TorchPOAEngine kernel {tag}, {len(blks)} of phase "
+            f"3's blocks over each mesh equal to one shard "
+            f"(stats {json.dumps(eng.stats())})")
+        torch.cuda.empty_cache()
+
+
+def ranks_phase(gfa: str, ref_out: str, ref_maf: str) -> None:
+    """Phase 20: two ranks of the port CLI (--dist-size 2, -t 4, phase 4's
+    other flags): both exit 0, each smooths its shard of the blocks on the
+    card (its engine's blocks are those of its all-gather payloads, and at
+    least 90% of them ran on the kernel, as on the main path), the shards
+    add up to every block, and rank 0's bytes equal phase 5's."""
+    import ast
+    import re
+    from smoothxg_tpu_torch.testing.ranks import run_ranks
+    flags = [*MAIN_FLAGS[:MAIN_FLAGS.index("-t")], "-t", "4"]
+    out, maf = (os.path.join(SMOKE_DIR, f"ranks.{x}") for x in ("gfa", "maf"))
+    t0 = time.perf_counter()
+    res = run_ranks(["-g", gfa, "-o", out, "-m", maf, *flags], 2,
+                    timeout=600)
+    wall = time.perf_counter() - t0
+    shards = []
+    for r, (rc, err) in enumerate(res):
+        if rc != 0:
+            fail(f"rank {r} of the two-rank run exited {rc}: {err[-1500:]}")
+        eng = [ln for ln in err.splitlines() if "::engine]" in ln]
+        gather = [ln.split("] ", 1)[-1] for ln in err.splitlines()
+                  if "all-gather payload" in ln]
+        say(f"two ranks, rank {r}: exit 0 ({'; '.join(smoothing_phases(err))}"
+            f"); {'; '.join(gather)}; {eng[-1] if eng else 'no engine line'}")
+        if not eng:
+            fail(f"rank {r} printed no engine stats")
+        st = ast.literal_eval(eng[-1].split("] ", 1)[1])
+        shard = sum(int(re.search(r" for (\d+) blocks", ln).group(1))
+                    for ln in gather)
+        total = st["device_blocks"] + st["fallbacks"] + st["redo"]
+        if total != shard or shard == 0:
+            fail(f"rank {r}: its engine took {total} blocks, its shard "
+                 f"holds {shard}")
+        if st["kernel_launches"] == 0 or st["device_blocks"] < 0.9 * shard:
+            fail(f"rank {r}: {st['kernel_launches']} kernel launches, "
+                 f"{st['device_blocks']}/{shard} blocks on the card")
+        shards.append(shard)
+    blocks = sum(int(re.match(r"smoothing (\d+) blocks", ln).group(1))
+                 for ln in smoothing_phases(res[0][1]))
+    if sum(shards) != blocks:
+        fail(f"the ranks' shards {shards} do not add up to the run's "
+             f"{blocks} blocks")
+    say(f"two ranks (--dist-size 2, {' '.join(flags)}): {wall:.2f} s wall, "
+        f"shards {shards} of {blocks} blocks, each on the card")
+    same_bytes("two-rank main path", out, maf, ref_out, ref_maf)
+
+
 def engine_run(gfa: str, out: str, maf: str, engine):
     """The main path through the API with a pre-built engine:
     run_smoothing(config_from_args(<the CLI's flags>), engine=engine)."""
@@ -1604,9 +1944,12 @@ def main() -> None:
         clock_mhz = float(clk[0])
     except (IndexError, ValueError):
         fail(f"nvidia-smi gave no max SM clock: {clk}")
-    say(f"device: {kind} ({smi}, max SM clock {clock_mhz:.0f} MHz), torch "
-        f"{torch.__version__}, cuda {torch.version.cuda}, count "
-        f"{torch.cuda.device_count()}")
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.split()
+    say(f"device: {kind} ({smi}, max SM clock {clock_mhz:.0f} MHz, compute "
+        f"mode {','.join(mode) or '?'}), torch {torch.__version__}, cuda "
+        f"{torch.version.cuda}, count {torch.cuda.device_count()}")
 
     from smoothxg_tpu_torch.ops import _build
     from smoothxg_tpu_torch.ops.poa_engine import TorchPOAEngine
@@ -1768,6 +2111,15 @@ def main() -> None:
     # every main path to its own kernels
     launches.update({name: 0 for name in LONG})
 
+    # phases 17-20: --engine jax's batch kernel and main path, sharding
+    # over cards and streams, and a two-rank run
+    entries["poa_batch"] = batch_phase(torch, dev, clock_mhz)
+    torch.cuda.empty_cache()
+    launches["poa_batch"] = jax_main_path(gfa, out2, maf2, clock_mhz)
+    shard_phase(torch, dev)
+    torch.cuda.empty_cache()
+    ranks_phase(gfa, out2, maf2)
+
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "smoothxg_tpu."))
                     or m == "smoothxg_tpu")
@@ -1784,7 +2136,8 @@ def main() -> None:
                 "minhash_inter": "smoothxg_tpu/ops/minhash_jax.py:139",
                 "minhash_hash_long": "smoothxg_tpu/ops/minhash_jax.py:107",
                 "minhash_inter_long": "smoothxg_tpu/ops/minhash_jax.py:139",
-                "ident": "smoothxg_tpu/ops/ident_jax.py:62"}
+                "ident": "smoothxg_tpu/ops/ident_jax.py:62",
+                "poa_batch": "smoothxg_tpu/ops/poa_jax.py:146"}
     sources = {"minhash_hash": "minhash", "minhash_inter": "minhash",
                "minhash_hash_long": "minhash", "minhash_inter_long": "minhash",
                "sgd_plan": "sgd"}

@@ -126,15 +126,20 @@ def build_parser() -> argparse.ArgumentParser:
                     default="fused",
                     help="POA engine: fused whole-block CUDA kernel "
                          "(default, one launch per block batch), per-round "
-                         "CUDA kernel (pallas), batched XLA kernels (jax, "
-                         "not yet ported), native C++, or the numpy host "
-                         "oracle")
+                         "CUDA kernel (pallas), batched per-round CUDA "
+                         "kernel with backpointer tables (jax), native "
+                         "C++, or the numpy host oracle")
     th.add_argument("--dist-rank", type=int, default=0,
-                    help="not yet ported (multi-process runs)")
+                    help="this process's rank in a multi-process "
+                         "data-parallel run (parallel/multiproc); rank r "
+                         "runs on card r mod the visible cards")
     th.add_argument("--dist-size", type=int, default=1,
-                    help="not yet ported: only 1 is accepted")
+                    help="number of cooperating processes; blocks shard "
+                         "by contiguous global id, results all-gather, "
+                         "rank 0 writes outputs")
     th.add_argument("--dist-coordinator", default="localhost:29777",
-                    help="not yet ported (multi-process runs)")
+                    help="host:port of the torch.distributed (gloo) "
+                         "process group")
 
     p.add_argument("-v", "--version", action="store_true")
     return p
@@ -231,11 +236,6 @@ def run(argv=None):
         print("[smoothxg_tpu_torch] error: specify -r/--n-haps or "
               "-w/--block-weight-max", file=sys.stderr)
         return 1, None
-    if args.dist_size > 1:
-        print("[smoothxg_tpu_torch] error: multi-process runs are not yet "
-              "ported (--dist-size)", file=sys.stderr)
-        return 1, None
-
     from .pipeline.consensus_graph import parse_consensus_spec
     specs = []
     requires_consensus = not args.vanish_consensus
@@ -251,12 +251,12 @@ def run(argv=None):
         cfg = config_from_args(args, add_consensus)
         try:
             _, consensus_path_names, engine = run_smoothing(cfg)
-        except (RuntimeError, NotImplementedError) as e:
-            if not str(e).startswith(("CUDA required", "--engine")):
+        except RuntimeError as e:
+            if not str(e).startswith("CUDA required"):
                 raise
             print(f"[smoothxg_tpu_torch] error: {e}", file=sys.stderr)
             return 1, None
-        if args.write_consensus_path_names:
+        if args.write_consensus_path_names and args.dist_rank == 0:
             with open(args.write_consensus_path_names, "w") as f:
                 for nm in consensus_path_names:
                     f.write(nm + "\n")
@@ -270,7 +270,7 @@ def run(argv=None):
         with open(args.consensus_from) as f:
             consensus_path_names = [ln.strip() for ln in f if ln.strip()]
 
-    if specs:
+    if specs and args.dist_rank == 0:
         from .pipeline.consensus_graph import build_consensus_specs
         build_consensus_specs(smoothed_gfa, specs, consensus_path_names,
                               threads=max(1, args.threads))

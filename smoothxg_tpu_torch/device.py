@@ -5,8 +5,8 @@ from __future__ import annotations
 import torch
 
 
-_GPU_ENGINES = ("the GPU engines (fused, pallas) run their POA kernels on "
-                "an NVIDIA GPU")
+_GPU_ENGINES = ("the GPU engines (fused, pallas, jax) run their POA kernels "
+                "on an NVIDIA GPU")
 
 
 def resolve(device: str | torch.device | None = "cuda",

@@ -2,8 +2,9 @@
 imported, into smoothxg_tpu_torch/_build/, keyed by a hash of the sources
 and flags.
 
-* CUDA kernels (the POA kernels, the probes, the SGD layout's sgd.cu and
-  the split stage's minhash.cu and ident.cu): each csrc/*.cu (with the
+* CUDA kernels (the POA kernels, --engine jax's poa_batch.cu, the probes,
+  the SGD layout's sgd.cu and the split stage's minhash.cu and ident.cu):
+  each csrc/*.cu (with the
   shared csrc/*.cuh) compiles with its own nvcc process, all started
   together, and one nvcc call links the objects into one shared library
   with a plain C interface (pointers and the stream go in as c_void_p),
@@ -159,6 +160,11 @@ def load() -> ctypes.CDLL:
             lib.poa_round_launch.restype = ci
             lib.poa_round_geometry.argtypes = [ci] * 3 + [vp]
             lib.poa_round_geometry.restype = ci
+            # the batched round of --engine jax (csrc/poa_batch.cu)
+            lib.poa_batch_launch.argtypes = [vp] * 11 + [ci] * 5 + [vp]
+            lib.poa_batch_launch.restype = ci
+            lib.poa_batch_task_words.argtypes = [ci, ci]
+            lib.poa_batch_task_words.restype = ctypes.c_longlong
             # (..., B, RW, LW, VW, then W, pcap, LS (poa_win) or pcap,
             # stage, LS, then local, banded, stream) and the geometry (B,
             # VW, pcap, LS, banded, int[4])

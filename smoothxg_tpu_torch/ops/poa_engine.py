@@ -35,6 +35,13 @@ FusedPallasEngine:
     ops/poa_stacked.poa_stacked (csrc/poa_stacked.cu, the port of
     _stacked_core: one warp per block, 4 predecessor slots), by default
     the four full-width tiers above; a windowed tier raises ValueError.
+
+`devices` shards each launch's blocks over several cards (the port of the
+`_compiled_*_sharded` wrappers, FusedPallasEngine's `devices`): a chunk
+holds the tier's batch times the shard count, cut into contiguous shards,
+each launched on its own device and stream (parallel/mesh.py).  By default
+an unindexed "cuda" takes every visible card, as FusedPallasEngine takes
+every chip; an indexed device is that card alone, the CPU one shard.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..parallel.mesh import launch_shards, wait_shards
 from . import poa_native
 from .poa_code import CodeCaps, poa_code
 from .poa_fused import FusedHostEngine
@@ -71,7 +79,7 @@ class TorchPOAEngine:
     def __init__(self, device: str | torch.device = "cuda",
                  max_seqs: int = 48, tiers: tuple | None = None,
                  threads: int = 1, shape: tuple | None = None,
-                 kernel: str = "win"):
+                 kernel: str = "win", devices: list | None = None):
         if kernel not in ("win", "stacked"):
             raise ValueError(f"unknown kernel {kernel!r} (win or stacked)")
         if shape is not None and (tiers is not None or kernel != "win"):
@@ -89,6 +97,12 @@ class TorchPOAEngine:
         else:
             self.kernel = "win"
         self.device = resolve(device)
+        if devices is None:
+            devices = ([torch.device("cuda", k)
+                        for k in range(torch.cuda.device_count())]
+                       if self.device.type == "cuda"
+                       and self.device.index is None else [self.device])
+        self.devices = [resolve(d) for d in devices]
         self.tiers = tuple(tuple(t) for t in (tiers or self.TIERS))
         self.RW = max_seqs
         if poa_native.available():
@@ -161,12 +175,12 @@ class TorchPOAEngine:
     def _tier_batch(self, ti: int, banded: bool, maxlen: int) -> int:
         """Blocks per launch of tier `ti` for blocks of at most `maxlen`
         bases: what SCRATCH_BUDGET holds at that row stride, capped at
-        MAX_BATCH."""
+        MAX_BATCH, on each shard's device."""
         VW, LW, W = self.tiers[ti]
         words = self._kernel(VW, LW, W, True, banded)[2](
             stride_for(maxlen, LW))
-        return max(1, min(self.MAX_BATCH[self.kernel],
-                          self.SCRATCH_BUDGET // (4 * words)))
+        return len(self.devices) * max(1, min(
+            self.MAX_BATCH[self.kernel], self.SCRATCH_BUDGET // (4 * words)))
 
     def _route(self, seqs, params=None) -> int | None:
         """Smallest tier index this block fits, or None (native engine).
@@ -257,13 +271,15 @@ class TorchPOAEngine:
         fb_futs = _async(fb) if fb else []
         redo: list[int] = []
         redo_futs: list = []
-        for chunk, meta, exp, paths, maxl in handles:
+        for chunk, shards, maxl in handles:
             t0 = time.perf_counter()
-            meta = meta.cpu().numpy()
+            parts = wait_shards(shards)
+            meta = torch.cat([p[0].cpu() for p in parts]).numpy()
             good = [b for b in range(len(chunk)) if meta[b, 1] == 0]
             vmax = int(meta[good, 0].max()) if good else 0
-            exp = exp[:, :, :vmax].cpu().numpy()
-            paths = paths[:, :, :maxl].cpu().numpy()
+            exp = torch.cat([p[1][:, :, :vmax].cpu() for p in parts]).numpy()
+            paths = torch.cat([p[2][:, :, :maxl].cpu()
+                               for p in parts]).numpy()
             self.device_s += time.perf_counter() - t0
             h_redo = [chunk[b] for b in range(len(chunk)) if meta[b, 1]]
             if h_redo:
@@ -294,11 +310,11 @@ class TorchPOAEngine:
         VW, LW, W = self.tiers[ti]
         ins = pack_blocks([(blocks[i][0], blocks[i][2]) for i in chunk], LW)
         maxl = int(ins[1].max())
-        dev = self.device
         kern, caps, _ = self._kernel(VW, LW, W, local, banded)
-        meta, exp, paths = kern(*(x.to(dev) for x in ins), caps)
-        if dev.type == "cuda":
-            self.kernel_launches += 1
+        shards = launch_shards(self.devices, lambda *x: kern(*x, caps),
+                               list(ins))
+        self.kernel_launches += sum(d.type == "cuda" for d in self.devices
+                                    [:len(shards)])
         self.calls += 1
         self.tier_blocks[ti] = self.tier_blocks.get(ti, 0) + len(chunk)
-        return chunk, meta, exp, paths, maxl
+        return chunk, shards, maxl

@@ -161,6 +161,20 @@ def fill(graph: POAGraph, seq: np.ndarray, p: POAParams):
     return H, Hq, E1, E2, row_of, node_of_row
 
 
+def c7_reason(p: POAParams, in_degree: int = 0,
+              slots: int | None = None) -> str | None:
+    """ROADMAP C7: why a round kernel (poa_round, poa_batch) would not
+    give this oracle's alignment, so that the task runs here instead:
+    banded params ("band"; the round kernels have no band), or an
+    in-degree above the kernel's predecessor slots, which it would
+    truncate ("truncated").  None when the kernel may take the task."""
+    if p.wb >= 0:
+        return "band"
+    if slots is not None and in_degree > slots:
+        return "truncated"
+    return None
+
+
 def align(graph: POAGraph, seq: np.ndarray, p: POAParams
           ) -> list[tuple[int | None, int | None]]:
     """Align seq (uint8 codes) to graph; returns the alignment as a list of

@@ -30,7 +30,8 @@ returns
   meta  (B, 4)       int32  n_moves, best score, flag (1 stuck, 2 iteration
                             limit), 0
 `from_pallas_layout` / `to_pallas_layout` convert from and to the Pallas
-kernel's arrays so the tests feed both kernels the same inputs.
+kernel's arrays so the tests feed both kernels the same inputs;
+`to_pallas_inputs` packs the port's inputs into the Pallas kernel's.
 """
 from __future__ import annotations
 
@@ -399,6 +400,26 @@ def from_pallas_layout(slen, nv, par, ninfo, seq, P: int):
         s[:, 1:].view(np.uint8)))
 
 
+def to_pallas_inputs(nv, slen, par, base, sink, preds, seq):
+    """The port's round inputs -> the Pallas kernel's (slen, nv, par,
+    ninfo, seq) numpy arrays (from_pallas_layout's inverse), VW rounded up
+    to 128 lanes, LW = LS + 1; for callers that take the Pallas layout
+    (parallel/mesh.sharded_pallas_round) fed from pack_tasks."""
+    B, VW = base.shape
+    P = preds.shape[2]
+    VWp = -(-VW // 128) * 128
+    planes = np.zeros((B, 2 + P, VWp), np.int16)
+    planes[:, 0, :VW] = base.numpy()
+    planes[:, 1, :VW] = sink.numpy()
+    planes[:, 2:, :VW] = preds.numpy().transpose(0, 2, 1)
+    s = np.full((B, 1, seq.shape[1] + 1), -1, np.int8)
+    s[:, 0, 1:] = seq.numpy().view(np.int8)
+    return (slen.numpy().reshape(B, 1, 1).astype(np.int32),
+            nv.numpy().reshape(B, 1, 1).astype(np.int32),
+            par.numpy().reshape(B, 1, 6).astype(np.int32),
+            planes.reshape(B, -1, 128), s)
+
+
 def to_pallas_layout(codes, meta, S: int):
     """The port's outputs -> `_pallas_fn`'s (codes (B, S) int32 packed
     ((i+2) << 15) | (j+2), meta (B, 4) int32); codes past each task's move
@@ -494,10 +515,11 @@ class TorchRoundPOAEngine:
             if graph.n_nodes() == 0 or len(seq) == 0:
                 results[t] = []
                 continue
-            if p.wb >= 0:
+            why = poa_host.c7_reason(p)
+            if why is not None:
                 results[t] = poa_host.align(graph, seq, p)
                 self.fallbacks += 1
-                self.fallback_reasons["band"] += 1
+                self.fallback_reasons[why] += 1
                 continue
             dev[bool(p.local)].append(t)
         inflight = []

@@ -7,8 +7,9 @@ consensus) -> unchop -> GFA; then optional consensus graph derivation
 (reference: src/main.cpp:1067-1131).  A copy of
 smoothxg_tpu/pipeline/run.py whose engines are the port's: the GPU engines,
 the SGD layout at 5M term updates an iteration or more and the split
-stage's device routes run on `device` (their plain versions on a CPU run),
-and the multi-process route is not yet ported.
+stage's device routes run on `device` (their plain versions on a CPU run);
+a multi-process run (dist_size > 1, parallel/multiproc.py) puts rank r on
+card r mod the visible cards.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 from ..graph.index import FlatIndex
 from ..io.gfa import read_gfa, write_gfa
 from ..ops.poa_host import POAParams
-from ..utils.progress import phase
+from ..utils.progress import Log, phase
 from .blocks import smoothable_blocks
 from .breaks import break_blocks
 from .lace import lace
@@ -102,22 +103,24 @@ class Config:
     xg_in: str = ""           # load a saved FlatIndex for iteration 1 (-i)
     write_split_blocks: bool = False      # -S split-block FASTA dumps
     write_poa_blocks_ms: int | None = None  # dump blocks slower than N ms
-    # multi-process data parallelism over blocks: not yet ported, a
-    # dist_size above 1 raises
+    # multi-process data parallelism over blocks (parallel/multiproc):
+    # every rank replicates the deterministic host stages, smoothing
+    # shards by contiguous global block id, results all-gather over
+    # torch.distributed (gloo), rank 0 writes the outputs
     dist_rank: int = 0
     dist_size: int = 1
     dist_coordinator: str = "localhost:29777"
     # engine: "fused" (whole-block GPU kernel) | "pallas" (per-round GPU
-    # kernel) | "native" (C++) | "host" (numpy oracle) | an instance; the
-    # default runs on the GPU, as the CLI's does, so a CPU run is asked for
+    # kernel) | "jax" (batched per-round GPU kernel) | "native" (C++) |
+    # "host" (numpy oracle) | an instance; the default runs on the GPU, as
+    # the CLI's does, so a CPU run is asked for
     engine: str = "fused"
 
 
 def make_engine(cfg: Config, device: str | torch.device = "cuda"):
-    """The engine `cfg.engine` names: "fused" is the whole-block GPU engine
-    and "pallas" the per-round GPU engine (both on `device`), "native" and
-    "host" run on the CPU; "jax" is not yet ported.  An engine instance
-    passes through."""
+    """The engine `cfg.engine` names: "fused" is the whole-block GPU engine,
+    "pallas" and "jax" the per-round GPU engines (all on `device`), "native"
+    and "host" run on the CPU.  An engine instance passes through."""
     if not isinstance(cfg.engine, str):
         return cfg.engine            # pre-built engine instance
     threads = cfg.poa_threads or cfg.threads or 1
@@ -134,9 +137,8 @@ def make_engine(cfg: Config, device: str | torch.device = "cuda"):
         from .smooth import HostPOAEngine
         return HostPOAEngine()
     if cfg.engine == "jax":
-        raise NotImplementedError(
-            "--engine jax is not yet ported to smoothxg_tpu_torch "
-            "(use fused, pallas, native or host)")
+        from ..ops.poa_batch import TorchBatchPOAEngine
+        return TorchBatchPOAEngine(device=device)
     raise ValueError(f"unknown engine {cfg.engine!r}")
 
 
@@ -150,9 +152,15 @@ def run_smoothing(cfg: Config, device: str | torch.device = "cuda",
     path_input = cfg.gfa_in
     consensus_path_names: list[str] = []
     if cfg.dist_size > 1:
-        raise NotImplementedError(
-            "multi-process runs (--dist-size) are not yet ported to "
-            "smoothxg_tpu_torch")
+        # the process group first, then the engine on this rank's card
+        from ..parallel.multiproc import init_process_group
+        init_process_group(cfg.dist_coordinator, cfg.dist_size,
+                           cfg.dist_rank)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None \
+                and torch.cuda.is_available():
+            device = torch.device(
+                "cuda", cfg.dist_rank % torch.cuda.device_count())
     engine = engine if engine is not None else make_engine(cfg, device)
     if (cfg.threads or 0) > 1 or (cfg.poa_threads or 0) > 1:
         # boot the -t worker pool now so spawn+import overlaps graph
@@ -188,15 +196,28 @@ def run_smoothing(cfg: Config, device: str | torch.device = "cuda",
             with phase(tag, f"loading graph {path_input}"):
                 g = read_gfa(path_input)
             if not cfg.no_prep:
+                # Multi-process runs replicate prep on EVERY rank and the
+                # threaded native SGD is racy (Hogwild, the reference's
+                # odgi path_linear_sgd semantics): ranks would derive
+                # different node orders, hence different blocksets.  Force
+                # the sequential SGD whenever dist_size > 1 (the card's
+                # route is deterministic).
+                prep_threads = cfg.threads or 1
+                if cfg.dist_size > 1 and prep_threads > 1:
+                    Log.info("prep", "dist_size > 1: forcing deterministic "
+                             "sequential SGD prep (threads=1) so all ranks "
+                             "derive the same node order")
+                    prep_threads = 1
                 with phase(tag, "prepping graph"):
                     g = prep(g, cfg.node_chop, use_sgd=cfg.use_sgd,
                              sgd_term_updates=cfg.sgd_term_updates,
-                             threads=cfg.threads or 1, device=device)
+                             threads=prep_threads, device=device)
             else:
                 g = g.compact()
             with phase(tag, "building flat index"):
                 idx = FlatIndex(g)
         seqidx = None
+        rsuf = f".r{cfg.dist_rank}" if cfg.dist_size > 1 else ""
         if cfg.mmap_seqindex:
             # on-disk mmap sequence store (reference: src/seqindex.cpp,
             # built once per run in src/main.cpp:387-389) — path sequences
@@ -205,7 +226,7 @@ def run_smoothing(cfg: Config, device: str | torch.device = "cuda",
             with phase(tag, "building sequence index"):
                 seqidx = SeqIndex.build(
                     idx, tempfiles.register(
-                        os.path.join(tmpdir, f".seqindex_{it}.sqx")))
+                        os.path.join(tmpdir, f".seqindex_{it}{rsuf}.sqx")))
             path_seqs = seqidx.views()
         else:
             path_seqs = [idx.path_seq(p) for p in range(idx.path_count())]
@@ -251,10 +272,16 @@ def run_smoothing(cfg: Config, device: str | torch.device = "cuda",
         if cfg.block_graph_cache_min and len(blockset) >= cfg.block_graph_cache_min:
             from ..utils.blockcache import BlockGraphCache
             graph_cache = BlockGraphCache(len(blockset))
+        smooth_fn = smooth_blocks
+        dist_kw = {}
+        if cfg.dist_size > 1:
+            from ..parallel.multiproc import distributed_smooth_blocks
+            smooth_fn = distributed_smooth_blocks
+            dist_kw = dict(rank=cfg.dist_rank, size=cfg.dist_size)
         with phase(tag, f"smoothing {len(blockset)} blocks"):
-            results = smooth_blocks(
+            results = smooth_fn(
                 idx, blockset,
-                params=params,
+                params=params, **dist_kw,
                 adaptive_poa_params=cfg.adaptive_poa_params,
                 kmer_size=cfg.kmer_size,
                 padding_fraction=cfg.poa_padding_fraction,
@@ -331,14 +358,17 @@ def run_smoothing(cfg: Config, device: str | torch.device = "cuda",
                     write_maf(cfg.write_msa_in_maf_format, hdr,
                               merge_outcome.maf_records)
 
-        if last:
+        # rank 0 writes the output; every other rank's graphs, the last
+        # one too, are rank-suffixed intermediates
+        if last and (cfg.dist_rank == 0 or cfg.dist_size == 1):
             out_path = cfg.smoothed_out
         else:
             out_path = os.path.join(
-                tmpdir, f"{os.path.basename(cfg.gfa_in)}.smooth.{it}.gfa")
+                tmpdir,
+                f"{os.path.basename(cfg.gfa_in)}.smooth.{it}{rsuf}.gfa")
         with phase(tag, f"writing smoothed graph {out_path}"):
             write_gfa(smoothed, out_path)
-        if not last:
+        if not last or (cfg.dist_size > 1 and cfg.dist_rank != 0):
             temps.append(out_path)
             if not cfg.keep_temp:
                 tempfiles.register(out_path)

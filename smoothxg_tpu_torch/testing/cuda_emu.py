@@ -1,5 +1,6 @@
 """Run a kernel source of the port (csrc/poa_win.cu, poa_code.cu,
-poa_stacked.cu, poa_round.cu, probes.cu, sgd.cu, minhash.cu, ident.cu) on
+poa_stacked.cu, poa_round.cu, poa_batch.cu, probes.cu, sgd.cu, minhash.cu,
+ident.cu) on
 the CPU, for testing its logic where there is no GPU and no nvcc.
 
 `build(name, workdir)` rewrites csrc/<name>.cu for the CUDA emulation in
@@ -15,7 +16,9 @@ dynamic shared bytes, tables in shared or device memory).
 `run_round(exe, ...)` launches poa_round.cu's `poa_round_launch` on the
 round inputs and returns (codes, meta) and its geometry (threads a block,
 one-tile rows with the ring, sequence and row tables in shared memory,
-shared bytes, blocks an SM).
+shared bytes, blocks an SM).  `run_batch(exe, ...)` launches
+poa_batch.cu's `poa_batch_launch` on ops/poa_batch.py's inputs and returns
+(out, outpos, bv).
 `run_probe(exe, family, ...)` launches `probe_<family>_launch` of probes.cu
 and returns its 128 outputs.  `run_sgd` (sgd.cu's plan and chain, or the
 chain alone on a given plan), `run_minhash_hash` (either route),
@@ -155,6 +158,44 @@ int main(int argc, char** argv) {
 """
 ROUND_GEOMETRY = ("threads", "ring", "seq_smem", "tables", "smem", "per_sm")
 
+# poa_batch.cu's entry: header (B, Vp, Lp, P, local), then the seven inputs
+# (sink as bytes); writes out, outpos and bv
+_BATCH_MAIN = r"""
+#include <cstdio>
+#include <cstdlib>
+int main(int argc, char** argv) {
+    FILE* f = std::fopen(argv[1], "rb");
+    int hd[5];
+    if (std::fread(hd, 4, 5, f) != 5) return 2;
+    const int B = hd[0], V = hd[1], L = hd[2], P = hd[3], local = hd[4];
+    std::vector<int32_t> base((size_t)V * B + 1), pred((size_t)V * B * P + 1),
+        seq((size_t)B * L + 1), slen(B), nvalid(B), par((size_t)B * 6);
+    std::vector<uint8_t> sink((size_t)B * (V + 1));
+    if (std::fread(base.data(), 4, (size_t)V * B, f) != (size_t)V * B ||
+        std::fread(pred.data(), 4, (size_t)V * B * P, f) !=
+            (size_t)V * B * P ||
+        std::fread(seq.data(), 4, (size_t)B * L, f) != (size_t)B * L ||
+        std::fread(slen.data(), 4, B, f) != (size_t)B ||
+        std::fread(nvalid.data(), 4, B, f) != (size_t)B ||
+        std::fread(sink.data(), 1, sink.size(), f) != sink.size() ||
+        std::fread(par.data(), 4, par.size(), f) != par.size()) return 2;
+    std::fclose(f);
+    const size_t S = (size_t)V + L + 5;
+    std::vector<int32_t> out((size_t)B * S * 2, 7), outpos(B, 7), bv(B, 7),
+        scratch((size_t)B * poa_batch_task_words(V, L), 0x5a5a5a5a);
+    const int rc = poa_batch_launch(
+        base.data(), pred.data(), seq.data(), slen.data(), nvalid.data(),
+        sink.data(), par.data(), out.data(), outpos.data(), bv.data(),
+        scratch.data(), B, V, L, P, local, nullptr);
+    f = std::fopen(argv[2], "wb");
+    std::fwrite(out.data(), 4, out.size(), f);
+    std::fwrite(outpos.data(), 4, B, f);
+    std::fwrite(bv.data(), 4, B, f);
+    std::fclose(f);
+    return rc;
+}
+"""
+
 # the split-stage and SGD kernels' entries: a header of ints, the inputs
 # in order, the outputs written back in order
 _READ = r"""
@@ -285,6 +326,8 @@ def build(name: str, workdir: str, defines=()) -> str:
         main = _PROBE_MAIN
     elif name == "poa_round":
         main = _ROUND_MAIN
+    elif name == "poa_batch":
+        main = _BATCH_MAIN
     else:
         # poa_win_launch takes the stored window width before pcap; the
         # code-chase kernels take a profiling stage after it; all take the
@@ -366,6 +409,23 @@ def run_round(exe: str, nv, slen, par, base, sink, preds, seq,
     meta = rest[:B * 4].reshape(B, 4)
     geo = dict(zip(ROUND_GEOMETRY, rest[B * 4:B * 4 + 6].tolist()))
     return (torch.from_numpy(codes.copy()), torch.from_numpy(meta.copy())), geo
+
+
+def run_batch(exe: str, base, pred, seq, slen, nvalid, sink, par,
+              local: bool, timeout: float = 120.0):
+    """Launch the emulated poa_batch_launch on ops/poa_batch.py's inputs
+    (CPU tensors, the XLA function's layout); returns (out, outpos, bv)."""
+    V, B = base.shape
+    L, P = seq.shape[1], pred.shape[2]
+    raw = _run_raw(exe, [B, V, L, P, int(local)],
+                   (base, pred, seq, slen, nvalid, sink.to(torch.uint8),
+                    par), timeout)
+    a = np.frombuffer(raw, np.int32)
+    S = V + L + 5
+    n = B * S * 2
+    return (torch.from_numpy(a[:n].reshape(B, S, 2).copy()),
+            torch.from_numpy(a[n:n + B].copy()),
+            torch.from_numpy(a[n + B:n + 2 * B].copy()))
 
 
 def run_probe(exe: str, family: str, args: tuple, n: int, sz: int = 1,

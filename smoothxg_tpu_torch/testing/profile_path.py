@@ -8,6 +8,7 @@ the per-iteration smoothing times, and the host functions with the most
 cumulative time.  Needs CUDA; without it, it fails.
 
   python -m smoothxg_tpu_torch.testing.profile_path --engine pallas
+  python -m smoothxg_tpu_torch.testing.profile_path --engine jax
   python -m smoothxg_tpu_torch.testing.profile_path --engine fused \\
       --haplotypes 16 --length 80000 --out smoke_out/profile
 
@@ -61,7 +62,8 @@ class _Timed:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--engine", choices=["fused", "pallas", "code", "stacked"],
+    ap.add_argument("--engine",
+                    choices=["fused", "pallas", "jax", "code", "stacked"],
                     default="pallas")
     ap.add_argument("--haplotypes", type=int, default=16)
     ap.add_argument("--length", type=int, default=80_000)
@@ -75,7 +77,7 @@ def main(argv=None) -> int:
         print("CUDA required: this profile measures the GPU", file=sys.stderr)
         return 1
     from .. import cli
-    from ..ops import poa_engine, poa_round
+    from ..ops import poa_batch, poa_engine, poa_round
     from ..pipeline.run import run_smoothing
     from .synth import write_pangenome
 
@@ -86,7 +88,7 @@ def main(argv=None) -> int:
                           seed=args.seed)
     argv_run = ["-g", gfa, "-o", os.path.join(args.out, "out.gfa"),
                 "-m", os.path.join(args.out, "out.maf"), *FLAGS]
-    if args.engine in ("fused", "pallas"):
+    if args.engine in ("fused", "pallas", "jax"):
         argv_run += ["--engine", args.engine]
 
         def run():
@@ -108,6 +110,7 @@ def main(argv=None) -> int:
 
     mod, name = {"fused": (poa_engine, "poa_win"),
                  "pallas": (poa_round, "poa_round"),
+                 "jax": (poa_batch, "poa_batch"),
                  "code": (poa_engine, "poa_code"),
                  "stacked": (poa_engine, "poa_stacked")}[args.engine]
     timed = _Timed(getattr(mod, name), torch)

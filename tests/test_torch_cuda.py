@@ -1,10 +1,11 @@
 """The port's CUDA kernels on the GPU: each kernel (poa_win, poa_round,
-poa_code and poa_stacked at every profiling stage, the four probe
+poa_batch, poa_code and poa_stacked at every profiling stage, the four probe
 families of csrc/probes.cu, sgd.cu, minhash.cu's two entries and
 ident.cu) against its plain PyTorch version (exact equality: the POA,
 probe and split outputs are integers, and sgd.cu sums in the plain
 version's order) and each GPU engine's slice end to end
-against the native engine's bytes.  Every test needs an NVIDIA GPU and
+against the native engine's bytes, and a launch sharded over two
+streams of one card against one launch.  Every test needs an NVIDIA GPU and
 skips without one.  Nothing here imports jax, so on a GPU machine without
 it: python -m pytest --noconftest -m cuda tests/test_torch_cuda.py"""
 import hashlib
@@ -15,6 +16,7 @@ import torch
 
 from smoothxg_tpu.pipeline.run import Config as JaxConfig
 from smoothxg_tpu.pipeline.run import run_smoothing as jax_pkg_run
+from smoothxg_tpu_torch.ops import poa_batch as pb
 from smoothxg_tpu_torch.ops.poa_code import (CodeCaps, poa_code,
                                              poa_code_reference)
 from smoothxg_tpu_torch.ops.poa_engine import TorchPOAEngine
@@ -29,6 +31,7 @@ from smoothxg_tpu_torch.ops.poa_stacked import (poa_stacked,
                                                 stacked_caps)
 from smoothxg_tpu_torch.ops.poa_win import (WinCaps, pack_blocks, poa_win,
                                             poa_win_reference)
+from smoothxg_tpu_torch.parallel.mesh import sharded_poa_round
 from smoothxg_tpu_torch.pipeline.run import Config, run_smoothing
 from smoothxg_tpu_torch.testing.synth import (make_block, make_fan_in_block,
                                               make_fan_in_task,
@@ -169,6 +172,30 @@ def test_round_kernel_matches_plain_version(cuda_device, local):
     for b, t in enumerate(tasks):
         assert decode_moves(codes[b].numpy(), int(meta[b, 0]), orders[b]) \
             == poa_host.align(*t)
+
+
+@pytest.mark.parametrize("local", [True, False])
+def test_batch_kernel_matches_plain_version(cuda_device, local):
+    """poa_batch (--engine jax) on seeded round tasks and a node of
+    in-degree 12 (P = 16), against its plain version; the same launch
+    sharded over two streams of the card gives the same outputs."""
+    rng = np.random.default_rng(43)
+    p = POAParams(local=local)
+    tasks = [make_round_task(rng, 200 + 160 * i, 3 + i % 5, 0.03, p)
+             for i in range(6)]
+    tasks.append(make_fan_in_task(rng, 12, 150, p))
+    ins, _ = pb.pack_tasks(tasks)
+    assert ins[1].shape[2] == 16
+    before = pb.poa_batch.launches
+    got = pb.poa_batch(*(x.to(cuda_device) for x in ins), local)
+    torch.cuda.synchronize()
+    assert pb.poa_batch.launches == before + 1
+    want = pb.poa_batch_reference(*ins, local)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for g, w in zip(sharded_poa_round([dev, dev], *ins, local=local), want):
+        assert torch.equal(g.cpu(), w)
 
 
 def test_round_kernel_past_the_pallas_packing(cuda_device):
@@ -323,3 +350,17 @@ def test_split_kernels_match_plain_versions(cuda_device):
                            ic.ident_counts_reference(*ins, band))
     assert ic.DeviceBandedIdentity(device=cuda_device).identities(pairs) == \
         [ic.host_banded_identity(a, b) for a, b in pairs]
+
+
+def test_jax_slice_on_gpu_matches_native_bytes(cuda_device, tmp_path):
+    gfa = write_pangenome(str(tmp_path / "in.gfa"), haplotypes=4,
+                          length=3000, seed=7)
+    eng = pb.TorchBatchPOAEngine(device=cuda_device)
+    run_smoothing(_cfg(gfa, tmp_path, "port", "jax"), engine=eng)
+    jax_pkg_run(_cfg(gfa, tmp_path, "native", "native", JaxConfig))
+    st = eng.stats()
+    assert st["kernel_launches"] > 0 and st["device_tasks"] > 0
+    assert st["fallbacks"] == 0
+    for ext in ("gfa", "maf"):
+        assert _sha(tmp_path / f"port.{ext}") == \
+            _sha(tmp_path / f"native.{ext}")

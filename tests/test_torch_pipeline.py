@@ -1,8 +1,9 @@
 """The port's slice end to end on the CPU: the seeded synthetic pangenome,
 run_smoothing with the port's engine against the JAX package's native run
-(same GFA and MAF bytes), the CLI's refusal to run without CUDA, and the
-guard that the port never imports JAX nor the JAX package.  Each package's
-objects come from its own modules."""
+(same GFA and MAF bytes), the CLI's refusal to run without CUDA, the
+routes it once refused (--engine jax, --dist-size), and the guard that the
+port never imports JAX nor the JAX package.  Each package's objects come
+from its own modules."""
 import hashlib
 import os
 import re
@@ -121,16 +122,42 @@ def test_api_default_engine_needs_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--engine", "jax"], ["--dist-size", "2"]])
-def test_cli_refuses_engines_not_yet_ported(tmp_path, capsys, flags):
-    """Routes that would need the JAX package's device code exit 1 with a
-    "not yet ported" message instead of importing jax."""
+def test_cli_runs_the_routes_it_once_refused(tmp_path, capsys, monkeypatch,
+                                             flags):
+    """--engine jax is a GPU engine: without CUDA the CLI exits 1 with
+    "CUDA required", and its plain version (device="cpu") gives the native
+    bytes.  --dist-size 2 runs as two ranks (torch.distributed, gloo) that
+    share the temp dir: both exit 0 and rank 0 writes the graph of one
+    rank's run."""
+    import torch
+    from smoothxg_tpu_torch.testing.ranks import run_ranks
     gfa = write_pangenome(str(tmp_path / "in.gfa"), haplotypes=2,
                           length=500, seed=1)
-    rc, _ = cli.run(["-g", gfa, "-o", str(tmp_path / "o.gfa"), "-r", "2",
-                     *flags])
-    assert rc == 1
-    assert "not yet ported" in capsys.readouterr().err
-    assert not os.path.exists(tmp_path / "o.gfa")
+    out = str(tmp_path / "o.gfa")
+    if flags[0] == "--engine":
+        with monkeypatch.context() as mp:
+            mp.setattr(torch.cuda, "is_available", lambda: False)
+            rc, _ = cli.run(["-g", gfa, "-o", out, "-r", "2", *flags])
+        err = capsys.readouterr().err
+        assert rc == 1 and "CUDA required" in err
+        assert "not yet ported" not in err and not os.path.exists(out)
+        _, _, eng = run_smoothing(_cfg(gfa, tmp_path, "port", "jax"),
+                                  device="cpu")
+        jax_pkg_run(_cfg(gfa, tmp_path, "native", "native", JaxConfig))
+        assert eng.stats()["device_tasks"] > 0
+        for ext in ("gfa", "maf"):
+            assert _sha(tmp_path / f"port.{ext}") == \
+                _sha(tmp_path / f"native.{ext}")
+        return
+    res = run_ranks(["-g", gfa, "-o", out, "-r", "2", "--engine", "native",
+                     *flags[2:]], 2, timeout=240)
+    for rc, err in res:
+        assert rc == 0, err[-2000:]
+        assert "not yet ported" not in err
+    one = str(tmp_path / "one.gfa")
+    assert cli.run(["-g", gfa, "-o", one, "-r", "2", "--engine",
+                    "native"])[0] == 0
+    assert _sha(out) == _sha(one)
 
 
 # the split stage's settings of tests/test_divergent.py (-I 0.95, -E 0.9,
