@@ -96,13 +96,18 @@ result:
      generator's 8 x 20 kb pangenome): blocks split, exactly the split
      kernels launched (the MinHash calls' shapes, launches and walls a
      call printed), and the bytes of run_smoothing(cfg, device="cpu").
- 17. batch kernel: 203 seeded round tasks (local and global, the XLA
-     engine's slot buckets P = 4, 8 and 16, V and L up to ~2,000, and a
-     local query of 8,400+ bases, past the XLA function's int16 buckets) through csrc/poa_batch.cu and its plain PyTorch
-     version (exact equality on out, outpos and bv), every 8th task's
-     score held against the oracle poa_host.fill; kernel time on the round
-     timing task (1 and 132 copies) against the plain version's, the
-     launch geometry and the ptxas registers, stack and spills.
+ 17. batch kernel: 204 seeded round tasks (local and global, the XLA
+     engine's slot buckets P = 4, 8 and 16, V and L up to ~2,000, a local
+     query of 8,400+ bases, past the XLA function's int16 buckets, and a
+     global query against a chain of 33,000 nodes, past int16 rows) through
+     csrc/poa_batch.cu and its plain PyTorch version (exact equality on
+     out, outpos and bv), every 8th task's score held against the oracle
+     poa_host.fill; the set must hold a task whose predecessors lie past
+     the ring of recent rows and a launch whose row tables sit in device
+     memory.  Kernel time on the round timing task (1, 132 and 264 copies)
+     against the plain version's.  Each launch prints its geometry (threads
+     a block, ring or tiled rows, where the row tables sit, shared bytes,
+     blocks an SM, the instantiation's ptxas registers, stack and spills).
  18. jax main path: the port CLI with --engine jax and phase 4's flags;
      >= 90% of the round tasks on poa_batch, GFA and MAF sha256 equal to
      phase 5's.
@@ -963,8 +968,8 @@ def kernel_registers(log: str) -> dict:
     instantiations: poa_code_kernel / poa_stacked_kernel<STAGE,
     SMEM_TABLES> as (stage, 'shared' / 'device'), poa_win_kernel<
     SMEM_TABLES, BANDED> as ('shared' / 'device', 'full' / 'banded'),
-    poa_round_kernel<RING, TSMEM> as ('ring' / 'tiled', 'shared' /
-    'device'), poa_batch_kernel<LOCAL> as ('local' / 'global',)."""
+    poa_round_kernel<RING, TSMEM> and poa_batch_kernel<RING, TSMEM> as
+    ('ring' / 'tiled', 'shared' / 'device')."""
     import re
     out = {}
     for e, r in ptxas_registers(log).items():
@@ -979,8 +984,6 @@ def kernel_registers(log: str) -> dict:
             key = (args[0], where[args[1]])
         elif name == "poa_win":         # <SMEM_TABLES, BANDED>
             key = (where[args[0]], ("full", "banded")[args[1]])
-        elif name == "poa_batch":       # <LOCAL>
-            key = (("global", "local")[args[0]],)
         else:
             key = (("tiled", "ring")[args[0]], where[args[1]])
         out[(name, key)] = r
@@ -1607,8 +1610,10 @@ def batch_groups(rng) -> list:
     """Phase 17's task groups, [(local, P or None, [(graph, query,
     params), ...]), ...]: BATCH_PLAN (P the slot bucket of each group's
     largest in-degree), fan-in tasks of in-degree 2-4, 5-8 and 9-15 packed
-    at P = 4, 8 and 16, local and global, and a local query of 8,400+
-    bases that ends in the graph's sequence."""
+    at P = 4, 8 and 16, local and global, a local query of 8,400+ bases
+    that ends in the graph's sequence, and a global query against a chain
+    of 33,000 nodes (past int16 rows: its row tables stay in device
+    memory)."""
     import numpy as np
     from smoothxg_tpu_torch.ops.poa_host import POAParams
     from smoothxg_tpu_torch.testing.synth import (make_fan_in_task,
@@ -1629,6 +1634,9 @@ def batch_groups(rng) -> list:
     g, q, _ = make_round_task(rng, 200, 2, 0.03, p)
     groups.append((True, None, [(g, np.concatenate(
         [rng.choice(np.frombuffer(b"ACGT", np.uint8), 8300), q]), p)]))
+    p = POAParams(local=False)
+    g, q, _ = make_round_task(rng, 33_000, 2, 0.01, p)
+    groups.append((False, None, [(g, q[20_000:20_040].copy(), p)]))
     return groups
 
 
@@ -1643,31 +1651,38 @@ def oracle_score(graph, seq, p) -> int:
                if not graph.succs[v])
 
 
-def batch_geometry_line(B: int, Vp: int, Lp: int) -> str:
-    """A poa_batch launch's geometry and the ptxas registers of both
-    instantiations."""
+def batch_geometry_line(B: int, Vp: int, Lp: int, P: int) -> str:
+    """A poa_batch launch's geometry (csrc/poa_batch.cu:poa_batch_geometry)
+    and the ptxas registers of the instantiation it runs."""
     from smoothxg_tpu_torch.ops import _build
     from smoothxg_tpu_torch.ops.poa_batch import geometry
-    g = geometry(B, Vp, Lp)
-    regs = kernel_registers(_build.build_log["ptxas"])
-    return (f"{g['grid']} blocks of {g['threads']} threads (a task a "
-            f"block), rows of {g['tiles']} tile(s) of {g['tile']} columns, "
-            f"scratch {g['scratch_bytes'] / 1e6:.1f} MB in device memory, "
-            f"static shared memory; " + "; ".join(
-                f"<{k}>: {used(regs.get(('poa_batch', (k,)), ''))} "
-                f"registers, {spilled(regs.get(('poa_batch', (k,)), ''))}"
-                for k in ("local", "global")))
+    g = geometry(B, Vp, Lp, P)
+    rep = kernel_registers(_build.build_log["ptxas"]).get(
+        ("poa_batch", (g["route"], g["tables"])), "")
+    rows = ("one-tile rows, ring in shared memory" if g["route"] == "ring"
+            else "tiled rows")
+    return (f"B {B}, Vp {Vp}, Lp {Lp}, P {P}: {g['threads']} threads, "
+            f"{rows}, tables in {g['tables']} memory, {g['smem']} B shared, "
+            f"{g['per_sm']} blocks an SM, scratch "
+            f"{g['scratch_bytes'] / 1e6:.1f} MB, {used(rep)} registers, "
+            f"{spilled(rep)}")
 
 
 def batch_phase(torch, dev, clock_mhz):
     """Phase 17.  Returns the batch kernel's JSON entry fields."""
+    import collections
+
     import numpy as np
-    from smoothxg_tpu_torch.ops.poa_batch import (pack_tasks, poa_batch,
+    from smoothxg_tpu_torch.ops.poa_batch import (geometry, pack_tasks,
+                                                  poa_batch,
                                                   poa_batch_reference)
+    from smoothxg_tpu_torch.tools.ring_reach import count_batch
     from smoothxg_tpu_torch.tools.time_chase import round_timing_task
     rng = np.random.default_rng(SEED + 4)
     n_tasks = n_oracle = max_err = 0
     slots: set = set()
+    routes: set = set()
+    reach: collections.Counter = collections.Counter()
     vmax = lmax = 0
     for local, P, tasks in batch_groups(rng):
         ins, _ = pack_tasks(tasks, P)
@@ -1687,22 +1702,39 @@ def batch_phase(torch, dev, clock_mhz):
             if int(got[2][b]) != oracle_score(*tasks[b]):
                 fail(f"batch kernel score != poa_host.fill on task {b}")
             n_oracle += 1
-        Vp, Lp = ins[0].shape[0], ins[2].shape[1]
-        slots.add(ins[1].shape[2])
+        Vp, Lp, Pk = ins[0].shape[0], ins[2].shape[1], ins[1].shape[2]
+        geo = geometry(len(tasks), Vp, Lp, Pk)
+        routes.add((geo["route"], geo["tables"]))
+        hist: collections.Counter = collections.Counter()
+        count_batch(hist, ins[4].numpy(), ins[1].numpy())
+        if geo["route"] == "ring":
+            reach.update(hist)
+        slots.add(Pk)
         vmax, lmax = max(vmax, Vp), max(lmax, Lp)
         n_tasks += len(tasks)
-        say(f"batch kernel local={local} P={ins[1].shape[2]}: {len(tasks)} "
-            f"tasks (V up to {Vp}, L up to {Lp}) equal to the plain version "
+        say(f"batch kernel local={local} P={Pk}: {len(tasks)} "
+            f"tasks (V up to {Vp}, L up to {Lp}, predecessors up to "
+            f"{max(hist)} rows back) equal to the plain version "
             f"({plain_s:.1f} s); geometry "
-            + batch_geometry_line(len(tasks), Vp, Lp))
+            + batch_geometry_line(len(tasks), Vp, Lp, Pk))
     if n_tasks < 200:
         fail(f"only {n_tasks} batch tasks compared")
     if not {4, 8, 16} <= slots or lmax <= 8200:
         fail(f"slots covered {sorted(slots)}, longest query {lmax}")
+    far = sum(v for d, v in reach.items() if d >= 8)
+    if not far:
+        fail("no ring-route task read a predecessor past the ring")
+    if not any(t == "device" for _, t in routes):
+        fail(f"no launch kept its row tables in device memory: {routes}")
+    say(f"batch kernel routes {sorted(routes)}; on the ring route "
+        f"{far} of {sum(reach.values())} predecessor reads past the ring "
+        f"(8+ rows back, from device memory)")
 
     # timing on phase 6's main-path task shape (V ~1,200, L ~1,000)
     task = round_timing_task()
     cpu_ins, _ = pack_tasks([task])
+    Vp, Lp, Pk = (cpu_ins[0].shape[0], cpu_ins[2].shape[1],
+                  cpu_ins[1].shape[2])
     t0 = time.perf_counter()
     want = poa_batch_reference(*cpu_ins, True)
     plain_ms = (time.perf_counter() - t0) * 1e3
@@ -1711,18 +1743,28 @@ def batch_phase(torch, dev, clock_mhz):
     got = poa_batch(*ins, True)
     if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
         fail("batch kernel != plain version on the timing task")
-    nb = 132
-    insB = [x.repeat_interleave(nb, dim=1 if x.dim() >= 2 and k < 2 else 0)
-            .contiguous() for k, x in enumerate(ins)]
-    batch_ms = cuda_ms(torch, lambda: poa_batch(*insB, True), reps=1)
+    copies = {}
+    for nb in (132, 264):
+        insB = [x.repeat_interleave(nb, dim=1 if x.dim() >= 2 and k < 2
+                                    else 0).contiguous()
+                for k, x in enumerate(ins)]
+        copies[nb] = cuda_ms(torch, lambda: poa_batch(*insB, True), reps=1)
+        got = poa_batch(*insB, True)
+        if not all(torch.equal(g[-1].cpu(), w[0]) for g, w in zip(got, want)):
+            fail(f"batch kernel != plain version on copy {nb} of the "
+                 f"timing task")
+        del insB, got
+        torch.cuda.empty_cache()
     cells, pcells = round_dp_work(task[0], len(task[1]))
     bound_ms = int32_bound_ms(fill_ops(cells, pcells, True), clock_mhz)
     say(f"batch kernel timing, one main-path task (V={task[0].n_nodes()}, "
         f"L={len(task[1])}, local): kernel {ms:.3f} ms, plain version "
-        f"{plain_ms:.1f} ms; {nb}-task launch {batch_ms:.2f} ms "
-        f"({nb * 1e3 / batch_ms:.1f} tasks/s); bound {bound_ms:.5f} ms "
-        f"({cells} DP cells, {pcells} extra pred cells); geometry "
-        + batch_geometry_line(nb, cpu_ins[0].shape[0], cpu_ins[2].shape[1]))
+        f"{plain_ms:.1f} ms; " + "; ".join(
+            f"{nb}-task launch {t:.3f} ms ({nb * 1e3 / t:.1f} tasks/s)"
+            for nb, t in copies.items())
+        + f"; bound {bound_ms:.5f} ms ({cells} DP cells, {pcells} extra "
+        f"pred cells); geometry " + "; ".join(
+            batch_geometry_line(nb, Vp, Lp, Pk) for nb in (1, 132, 264)))
     say(f"batch kernel vs plain version: {n_tasks} tasks equal (max abs err "
         f"{max_err}, tolerance 0: all outputs are integers), {n_oracle} "
         f"scores equal to poa_host.fill; slot buckets {sorted(slots)}, V up "
@@ -1736,8 +1778,10 @@ def jax_main_path(gfa: str, ref_out: str, ref_maf: str, clock_mhz) -> int:
     """Phase 18: the port CLI with --engine jax and phase 4's flags,
     counted by `drive`; a spy keeps each launch's DP work and shape.
     Returns poa_batch's launches."""
+    import collections
     from smoothxg_tpu_torch import cli
-    from smoothxg_tpu_torch.ops.poa_batch import TorchBatchPOAEngine
+    from smoothxg_tpu_torch.ops.poa_batch import (TorchBatchPOAEngine,
+                                                  slots_for)
     out, maf = (os.path.join(SMOKE_DIR, f"jax.{x}") for x in ("gfa", "maf"))
     work, shapes = [], []
     run_chunk = TorchBatchPOAEngine._run_chunk
@@ -1746,7 +1790,9 @@ def jax_main_path(gfa: str, ref_out: str, ref_maf: str, clock_mhz) -> int:
         work.extend((*round_dp_work(tasks[t][0], len(tasks[t][1])), local)
                     for t in chunk)
         shapes.append((len(chunk), max(tasks[t][0].n_nodes() for t in chunk),
-                       max(len(tasks[t][1]) for t in chunk)))
+                       max(len(tasks[t][1]) for t in chunk),
+                       slots_for(max(len(ps) for t in chunk
+                                     for ps in tasks[t][0].preds))))
         return run_chunk(self, tasks, chunk, local, results, orders)
 
     TorchBatchPOAEngine._run_chunk = spy
@@ -1773,10 +1819,15 @@ def jax_main_path(gfa: str, ref_out: str, ref_maf: str, clock_mhz) -> int:
         f"({'; '.join(smoothing_phases(log.getvalue()))}); stats "
         f"{json.dumps(st)}; DP work of its {len(work)} launched tasks "
         f"{cells} cells, {pcells} extra pred cells, bound {bound:.3f} ms")
-    Bs, Vs, Ls = zip(*shapes)
+    from smoothxg_tpu_torch.ops.poa_batch import geometry
+    Bs, Vs, Ls, Ps = zip(*shapes)
+    kinds = collections.Counter(
+        (g["route"], g["tables"], g["per_sm"])
+        for g in (geometry(*x) for x in shapes))
     say(f"jax main path launch geometry: {len(shapes)} launches of "
         f"{min(Bs)}-{max(Bs)} tasks, V {min(Vs)}-{max(Vs)}, L "
-        f"{min(Ls)}-{max(Ls)}; the largest: "
+        f"{min(Ls)}-{max(Ls)}, P {sorted(set(Ps))}; (route, tables, blocks "
+        f"an SM): launches {dict(kinds)}; the largest: "
         + batch_geometry_line(*max(shapes, key=lambda x: x[0] * x[1] * x[2])))
     if st["device_tasks"] < 0.9 * tasks:
         fail(f"only {st['device_tasks']}/{tasks} round tasks ran on the "

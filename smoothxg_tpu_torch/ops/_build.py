@@ -165,6 +165,8 @@ def load() -> ctypes.CDLL:
             lib.poa_batch_launch.restype = ci
             lib.poa_batch_task_words.argtypes = [ci, ci]
             lib.poa_batch_task_words.restype = ctypes.c_longlong
+            lib.poa_batch_geometry.argtypes = [ci] * 4 + [vp]
+            lib.poa_batch_geometry.restype = ci
             # (..., B, RW, LW, VW, then W, pcap, LS (poa_win) or pcap,
             # stage, LS, then local, banded, stream) and the geometry (B,
             # VW, pcap, LS, banded, int[4])

@@ -53,24 +53,39 @@ NEG = -(1 << 30)
 MAX_P = 16                 # 4-bit predecessor slot codes
 MAX_L = 30000              # longer sequences go to the host (poa_jax :417)
 MAX_LP = 65535             # csrc/poa_batch.cu keeps an F origin in 16 bits
-NT = 256                   # csrc/poa_batch.cu: threads a block
-BCPT = 4                   # columns a thread a tile
 
 
 def task_words(Vp: int, Lp: int) -> int:
     """int32 words of one task's device scratch (csrc/poa_batch.cu:
-    poa_batch_task_words): (Vp + 1) rows of Lp + 1 columns rounded up to
-    4, 20 bytes a cell (H, E1, E2 and the packed backpointers; the two F
-    origins)."""
-    return 5 * (Vp + 1) * ((Lp + 4) & ~3)
+    poa_batch_task_words): five planes (H, E1, E2, the packed
+    backpointers and Hq) of (Vp + 1) rows of Lp + 1 columns rounded up to
+    4, then the row tables for when they stay in device memory (18 words
+    a row and a bit, rounded up to 4)."""
+    plane = (Vp + 1) * ((Lp + 4) & ~3)
+    return 5 * plane + ((18 * Vp + (Vp + 31) // 32 + 3) & ~3)
 
 
-def geometry(B: int, Vp: int, Lp: int) -> dict:
-    """The launch geometry of a batch: a thread block a task, its rows in
-    tiles of NT * BCPT columns, its scratch in device memory."""
-    return {"grid": B, "threads": NT, "tile": NT * BCPT,
-            "tiles": -(-(Lp + 1) // (NT * BCPT)),
-            "scratch_bytes": 4 * B * task_words(Vp, Lp), "smem": "static"}
+def geometry(B: int, Vp: int, Lp: int, P: int) -> dict:
+    """The launch geometry of B tasks packed at (Vp, Lp, P) on the current
+    card, as csrc/poa_batch.cu:poa_batch_geometry decides it: a thread
+    block a task of `threads`, rows in one tile with the ring of recent
+    rows in shared memory ("ring") or walked in tiles ("tiled"), the row
+    tables in "shared" or "device" memory, the dynamic shared bytes and
+    the blocks an SM holds; with the grid and the scratch bytes."""
+    import ctypes
+    from . import _build
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    rc = lib.poa_batch_geometry(B, Vp, Lp, P, out)
+    if rc != 0:
+        msg = lib.poa_win_error_string(rc).decode()
+        raise RuntimeError(f"poa_batch_geometry failed: CUDA error {rc} "
+                           f"({msg})")
+    threads, ring, tables, smem, per_sm = out
+    return {"grid": B, "threads": threads,
+            "route": "ring" if ring else "tiled",
+            "tables": "shared" if tables else "device", "smem": smem,
+            "per_sm": per_sm, "scratch_bytes": 4 * B * task_words(Vp, Lp)}
 
 
 def _check_inputs(base, pred, seq, slen, nvalid, sink, par) -> None:

@@ -31,10 +31,24 @@ def make_mesh(n_devices: int | list | None = None) -> list[torch.device]:
     return [torch.device("cuda", k) for k in range(n)]
 
 
-# the JAX package's name for the multi-process bootstrap: torch.distributed
-# (gloo) on tcp://coordinator, init_distributed(coordinator, num_processes,
-# process_id)
-init_distributed = init_process_group
+def init_distributed(coordinator: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None,
+                     timeout_s: float = 1800.0) -> None:
+    """The multi-process bootstrap under the JAX package's name:
+    torch.distributed (gloo) on tcp://coordinator through
+    multiproc.init_process_group.  Without a coordinator, or with one
+    process or none, it starts no group and returns.
+
+    Every argument is taken as given: no environment variable is read.
+    That is where this differs from the reference, whose missing
+    coordinator is looked up in JAX_COORDINATOR_ADDRESS (and the count and
+    rank in JAX_NUM_PROCESSES and JAX_PROCESS_ID); here the caller passes
+    all three, as the CLI's --dist-* flags do."""
+    if not coordinator or num_processes is None or num_processes <= 1:
+        return
+    init_process_group(coordinator, num_processes, process_id or 0,
+                       timeout_s)
 
 
 def launch_shards(devices, fn, inputs, dims=None) -> list:

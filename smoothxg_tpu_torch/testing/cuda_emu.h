@@ -21,6 +21,7 @@
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <functional>
 #include <memory>
@@ -109,6 +110,15 @@ inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicAdd(int* p, int v) {
     return std::atomic_ref<int>(*p).fetch_add(v);
+}
+inline void __threadfence_block() {
+    std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+inline void __trap() { std::abort(); }
+// a spin-wait's pause: the emulated threads share few cores
+#define SPIN_PAUSE() std::this_thread::yield()
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+    return std::atomic_ref<unsigned>(*p).fetch_or(v);
 }
 inline unsigned __umulhi(unsigned a, unsigned b) {
     return (unsigned)(((unsigned long long)a * b) >> 32);

@@ -18,7 +18,9 @@ round inputs and returns (codes, meta) and its geometry (threads a block,
 one-tile rows with the ring, sequence and row tables in shared memory,
 shared bytes, blocks an SM).  `run_batch(exe, ...)` launches
 poa_batch.cu's `poa_batch_launch` on ops/poa_batch.py's inputs and returns
-(out, outpos, bv).
+(out, outpos, bv); `run_batch_geometry` also returns its geometry
+(`poa_batch_geometry`: threads a block, ring or tiled rows, row tables in
+shared or device memory, shared bytes, blocks an SM).
 `run_probe(exe, family, ...)` launches `probe_<family>_launch` of probes.cu
 and returns its 128 outputs.  `run_sgd` (sgd.cu's plan and chain, or the
 chain alone on a given plan), `run_minhash_hash` (either route),
@@ -158,16 +160,18 @@ int main(int argc, char** argv) {
 """
 ROUND_GEOMETRY = ("threads", "ring", "seq_smem", "tables", "smem", "per_sm")
 
-# poa_batch.cu's entry: header (B, Vp, Lp, P, local), then the seven inputs
-# (sink as bytes); writes out, outpos and bv
+# poa_batch.cu's entry: header (B, Vp, Lp, P, local, sms, smem_block,
+# smem_sm), then the seven inputs (sink as bytes); writes out, outpos, bv
+# and the geometry, then the scratch words a task
 _BATCH_MAIN = r"""
 #include <cstdio>
 #include <cstdlib>
 int main(int argc, char** argv) {
     FILE* f = std::fopen(argv[1], "rb");
-    int hd[5];
-    if (std::fread(hd, 4, 5, f) != 5) return 2;
+    int hd[8];
+    if (std::fread(hd, 4, 8, f) != 8) return 2;
     const int B = hd[0], V = hd[1], L = hd[2], P = hd[3], local = hd[4];
+    emu::sms = hd[5]; emu::smem_block = hd[6]; emu::smem_sm = hd[7];
     std::vector<int32_t> base((size_t)V * B + 1), pred((size_t)V * B * P + 1),
         seq((size_t)B * L + 1), slen(B), nvalid(B), par((size_t)B * 6);
     std::vector<uint8_t> sink((size_t)B * (V + 1));
@@ -187,14 +191,20 @@ int main(int argc, char** argv) {
         base.data(), pred.data(), seq.data(), slen.data(), nvalid.data(),
         sink.data(), par.data(), out.data(), outpos.data(), bv.data(),
         scratch.data(), B, V, L, P, local, nullptr);
+    int geo[5] = {0, 0, 0, 0, 0};
+    poa_batch_geometry(B, V, L, P, geo);
     f = std::fopen(argv[2], "wb");
     std::fwrite(out.data(), 4, out.size(), f);
     std::fwrite(outpos.data(), 4, B, f);
     std::fwrite(bv.data(), 4, B, f);
+    std::fwrite(geo, 4, 5, f);
+    const long long words = poa_batch_task_words(V, L);
+    std::fwrite(&words, 8, 1, f);
     std::fclose(f);
     return rc;
 }
 """
+BATCH_GEOMETRY = ("threads", "ring", "tables", "smem", "per_sm")
 
 # the split-stage and SGD kernels' entries: a header of ints, the inputs
 # in order, the outputs written back in order
@@ -411,21 +421,34 @@ def run_round(exe: str, nv, slen, par, base, sink, preds, seq,
     return (torch.from_numpy(codes.copy()), torch.from_numpy(meta.copy())), geo
 
 
-def run_batch(exe: str, base, pred, seq, slen, nvalid, sink, par,
-              local: bool, timeout: float = 120.0):
+def run_batch_geometry(exe: str, base, pred, seq, slen, nvalid, sink, par,
+                       local: bool, timeout: float = 120.0, sms: int = SMS,
+                       smem_block: int = SMEM_BLOCK,
+                       smem_sm: int = SMEM_SM):
     """Launch the emulated poa_batch_launch on ops/poa_batch.py's inputs
-    (CPU tensors, the XLA function's layout); returns (out, outpos, bv)."""
+    (CPU tensors, the XLA function's layout); returns ((out, outpos, bv),
+    the launch geometry as a dict: threads a block, one-tile rows with the
+    ring, row tables in shared memory, shared bytes, blocks an SM, and
+    the kernel's scratch words a task, `task_words`)."""
     V, B = base.shape
     L, P = seq.shape[1], pred.shape[2]
-    raw = _run_raw(exe, [B, V, L, P, int(local)],
+    raw = _run_raw(exe, [B, V, L, P, int(local), sms, smem_block, smem_sm],
                    (base, pred, seq, slen, nvalid, sink.to(torch.uint8),
                     par), timeout)
     a = np.frombuffer(raw, np.int32)
     S = V + L + 5
     n = B * S * 2
+    geo = dict(zip(BATCH_GEOMETRY, a[n + 2 * B:n + 2 * B + 5].tolist()))
+    geo["task_words"] = int(np.frombuffer(raw[4 * (n + 2 * B + 5):],
+                                          np.int64)[0])
     return (torch.from_numpy(a[:n].reshape(B, S, 2).copy()),
             torch.from_numpy(a[n:n + B].copy()),
-            torch.from_numpy(a[n + B:n + 2 * B].copy()))
+            torch.from_numpy(a[n + B:n + 2 * B].copy())), geo
+
+
+def run_batch(exe: str, *args, **kw):
+    """run_batch_geometry without the geometry: (out, outpos, bv)."""
+    return run_batch_geometry(exe, *args, **kw)[0]
 
 
 def run_probe(exe: str, family: str, args: tuple, n: int, sz: int = 1,

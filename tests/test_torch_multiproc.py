@@ -93,3 +93,13 @@ def test_init_distributed_joins_two_processes():
         assert out.strip() == "r0|r1r1r1r1"
     init_distributed(coord, 1, 0)
     assert not dist.is_initialized()
+
+
+def test_init_distributed_without_a_coordinator_starts_no_group():
+    """With no arguments, or with a coordinator but no process count, the
+    bootstrap returns None and starts no group."""
+    assert init_distributed() is None
+    assert not dist.is_initialized()
+    assert init_distributed("localhost:1") is None
+    assert init_distributed(None, 2, 1) is None
+    assert not dist.is_initialized()
