@@ -8,7 +8,7 @@ result:
   1. device: CUDA required; the card's name, power limit, SM clock and
      compute mode (phase 20 puts two processes on it).
   2. build:  csrc/*.cu (poa_win, poa_round, poa_code, poa_stacked,
-     poa_batch, probes, sgd, minhash, ident) compiled from the checkout, one nvcc process per source
+     poa_batch, probes, sgd, minhash, ident, autocorr) compiled from the checkout, one nvcc process per source
      started together and one link (each kernel's ptxas registers: every
      instantiation of poa_win and poa_round with its stack and spills, the
      stage-0 instantiations of poa_code and poa_stacked, every stage, the
@@ -120,9 +120,24 @@ result:
      local port, -t 4, phase 4's other flags; rank r on card r mod the
      visible cards, so both share a lone card); both exit 0, rank 0's GFA
      and MAF sha256 equal to phase 5's.
-Every main path (4, 7, 9, 11, the probes' phase 12, 14's prep, 16 and
-18) runs with all sixteen wrappers' launch counts set to 0 just before it
-and read just after: its own kernels must have launched and no other.  Then the
+ 21. autocorr: csrc/autocorr.cu on 128 seeded rows of 2-40 kb (tandem
+     repeats of 1-8 kb periods, random rows, runs of N) at the CLI's lag
+     grid (1,000-20,000 every 50) equal to its plain version exactly,
+     timed beside it and beside a grouped conv1d over one-hot rows (the
+     library column, where its counts are exact), with the bound, the
+     launch geometry and the ptxas registers; then the repeat_batch path
+     on the card, every row's (length, z) equal to the host `repeat`'s.
+ 22. steal: (a) the fused main path in one rank at -t 1 -T 4 through
+     run_smoothing (the host steal on by default, the kernel build and
+     warm-up in the background): GFA and MAF sha256 equal to phase 5's,
+     stats() with the stolen count and the rate estimates, and what held
+     the steal back when nothing was stolen; (b) a forced steal on phase
+     3's blocks (max_batch 8, rates set on the instance): blocks stolen,
+     every graph equal to the steal-off engine's.
+Every main path (4, 7, 9, 11, the probes' phase 12, 14's prep, 16, 18, 21
+and 22 (a)) runs with all seventeen wrappers' launch counts set to 0 just
+before it and read just after: its own kernels must have launched and no
+other.  Then the
 kernels' JSON line, the nvidia-smi line and the result line.  No module
 of jax or of the JAX package may be loaded in this process.
 """
@@ -246,11 +261,12 @@ SPLIT = ("minhash_hash", "minhash_inter", "ident")
 # the split kernels' routes for rows past shared memory: on no main path
 LONG = ("minhash_hash_long", "minhash_inter_long")
 KERNELS = (("poa_win", "poa_round", "poa_code", "poa_stacked") + PROBES
-           + ("sgd", "sgd_plan") + SPLIT + LONG + ("poa_batch",))
+           + ("sgd", "sgd_plan") + SPLIT + LONG + ("poa_batch", "autocorr"))
 
 
 def wrappers() -> dict:
     """Each kernel's wrapper, which counts its launches, by name."""
+    from smoothxg_tpu_torch.ops.autocorr import autocorr_counts
     from smoothxg_tpu_torch.ops.ident_cuda import ident_counts
     from smoothxg_tpu_torch.ops.minhash_cuda import (minhash_hash,
                                                      minhash_hash_long,
@@ -270,7 +286,7 @@ def wrappers() -> dict:
             "minhash_inter": minhash_inter, "ident": ident_counts,
             "minhash_hash_long": minhash_hash_long,
             "minhash_inter_long": minhash_inter_long,
-            "poa_batch": poa_batch}
+            "poa_batch": poa_batch, "autocorr": autocorr_counts}
 
 
 def drive(run, own):
@@ -1025,7 +1041,9 @@ def build_summary(log: str) -> str:
                       ("minhash_hash (device)", "minhash_hash_kernelILb1"),
                       ("minhash_inter", "minhash_inter_kernel"),
                       ("minhash_inter_long", "minhash_inter_long_kernel"),
-                      ("ident_block", "ident_block_kernel")):
+                      ("ident_block", "ident_block_kernel"),
+                      ("autocorr (shared)", "autocorr_kernelILb1"),
+                      ("autocorr (device)", "autocorr_kernelILb0")):
         mine = [r for e, r in regs.items() if tag in e]
         parts.append(f"{name} " + (
             f"{used(mine[0])} registers, {spilled(mine[0])}" if mine
@@ -1960,6 +1978,248 @@ def ranks_phase(gfa: str, ref_out: str, ref_maf: str) -> None:
     same_bytes("two-rank main path", out, maf, ref_out, ref_maf)
 
 
+# phase 21: the batched autocorrelation screen at the CLI's defaults (-c
+# 1000, -C 20000 and the lag stride 50, cli.py), on 128 seeded rows
+AC_ROWS = 128
+AC_LAGS = (1000, 20000, 50)
+
+
+def autocorr_rows(rng, n: int = AC_ROWS) -> list:
+    """Phase 21's rows of 2-40 kb, by fours: two tandem repeats of a 1-8 kb
+    period with 1% point mutations, a random row and a random row with
+    runs of N."""
+    import numpy as np
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rows = []
+    for i in range(n):
+        L = int(rng.integers(2000, 40001))
+        if i % 4 < 2:
+            period = int(rng.choice([1000, 1500, 2050, 3000, 5000, 8000]))
+            s = np.resize(acgt[rng.integers(0, 4, period)], L)
+            pos = rng.integers(0, L, L // 100)
+            s[pos] = acgt[rng.integers(0, 4, len(pos))]
+        else:
+            s = acgt[rng.integers(0, 4, L)]
+            if i % 4 == 3:
+                for _ in range(3):
+                    a = int(rng.integers(0, L))
+                    s[a:a + int(rng.integers(100, 2000))] = ord("N")
+        rows.append(s)
+    return rows
+
+
+def conv1d_counts(torch, buf, lens, lags, want):
+    """The match counts by one grouped torch.nn.functional.conv1d over
+    one-hot rows (a channel a symbol of the batch, each row's one-hot the
+    weight of its own groups, its input shifted by the first lag, the
+    stride the grid's): (ms of the call, "exact") when they equal `want`
+    exactly, else (None, the reason).  Timed here as a yardstick only."""
+    import numpy as np
+    B, Lpad = buf.shape
+    G, lag0 = len(lags), int(lags[0])
+    stride = int(lags[1] - lags[0]) if G > 1 else 1
+    dev = want.device
+    syms = np.unique(np.concatenate([buf[b, :n] for b, n in
+                                     enumerate(lens)]))
+    rows = torch.from_numpy(buf).to(dev)
+    live = torch.arange(Lpad, device=dev)[None, :] < \
+        torch.from_numpy(lens).to(dev)[:, None]
+    w = ((rows[:, None, :] == torch.from_numpy(syms).to(dev)[None, :, None])
+         & live[:, None, :]).float()                       # (B, S, Lpad)
+    S = len(syms)
+    x = torch.zeros((B, S, (G - 1) * stride + Lpad), device=dev)
+    x[:, :, :Lpad - lag0] = w[:, :, lag0:]
+    x, w = x.reshape(1, B * S, -1), w.reshape(B * S, 1, Lpad)
+
+    def run():
+        return torch.nn.functional.conv1d(x, w, stride=stride, groups=B * S)
+
+    try:
+        got = run().reshape(B, S, G).sum(1).round().to(torch.int32)
+    except RuntimeError as e:
+        return None, f"conv1d raised: {str(e)[:120]}"
+    if not torch.equal(got, want):
+        return None, (f"not exact: max abs err "
+                      f"{int((got.long() - want.long()).abs().max())}")
+    return cuda_ms(torch, run, reps=3), \
+        f"exact ({S} symbols, {B * S} groups of {Lpad} taps)"
+
+
+def autocorr_phase(torch, dev, clock_mhz):
+    """Phase 21.  Returns the kernel's JSON entry fields and its launches
+    on the repeat_batch path."""
+    import numpy as np
+    from smoothxg_tpu_torch.ops import _build
+    from smoothxg_tpu_torch.ops.autocorr import (autocorr_counts,
+                                                 autocorr_counts_reference,
+                                                 geometry, repeat,
+                                                 repeat_batch)
+    seqs = autocorr_rows(np.random.default_rng(SEED + 21))
+    min_lag, max_lag, stride = AC_LAGS
+    lens = np.array([len(s) for s in seqs], np.int32)
+    lags = np.arange(min_lag, min(max_lag, int(lens.max()) // 2) + 1,
+                     stride).astype(np.int32)
+    B, G, Lpad = len(seqs), len(lags), -(-int(lens.max()) // 4) * 4
+    buf = np.zeros((B, Lpad), np.uint8)
+    for b, s in enumerate(seqs):
+        buf[b, :len(s)] = s
+    ins = [torch.from_numpy(x).to(dev) for x in (buf, lens, lags)]
+    got = autocorr_counts(*ins)
+    want = autocorr_counts_reference(*ins)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        fail(f"autocorr kernel != plain version: max abs err {err}")
+    ms = cuda_ms(torch, lambda: autocorr_counts(*ins), reps=20)
+    plain_ms = cuda_ms(torch, lambda: autocorr_counts_reference(*ins))
+    lib_ms, lib_note = conv1d_counts(torch, buf, lens, lags, want)
+    torch.cuda.empty_cache()
+    # the least time: every window's 4-byte word compares at 132 SMs x 128
+    # lanes x clock, or the rows read once and the counts written once
+    win = np.maximum(lens[:, None].astype(np.int64) - lags[None, :], 0)
+    words = int(((win + 3) // 4).sum())
+    ops_ms = words / (132 * 128 * clock_mhz * 1e6) * 1e3
+    nbytes = int(lens.sum()) + 4 * (B * G + B + G)
+    bytes_ms = nbytes / 3.35e12 * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    geo = geometry(B, Lpad, G)
+    regs = {where: f"{used(r)} registers, {spilled(r)}"
+            for e, r in ptxas_registers(_build.build_log["ptxas"]).items()
+            for tag, where in (("ILb1", "shared"), ("ILb0", "device"))
+            if f"autocorr_kernel{tag}" in e}
+    say(f"autocorr: {B} rows of {int(lens.min())}-{int(lens.max())} bases "
+        f"({int(lens.sum())} in all; tandem, random, runs of N), {G} lags "
+        f"{int(lags[0])}-{int(lags[-1])} every {stride}: kernel equal to "
+        f"the plain version (max abs err 0, tolerance 0: integer counts); "
+        f"kernel {ms:.4f} ms, plain version {plain_ms:.3f} ms, grouped "
+        f"conv1d over one-hot rows "
+        f"{'%.3f ms' % lib_ms if lib_ms is not None else 'none'} "
+        f"({lib_note}); bound {bound_ms:.4f} ms by {bound_by} ({words} "
+        f"word compares at {clock_mhz:.0f} MHz: {ops_ms:.4f} ms; {nbytes} B "
+        f"at 3.35 TB/s: {bytes_ms:.4f} ms); geometry: row in "
+        f"{'shared' if geo['shared'] else 'device'} memory, {geo['blocks']} "
+        f"blocks of {geo['threads']} threads (a row and 32 lags a block), "
+        f"{geo['smem']} B shared; ptxas {regs or 'no report'}")
+    t0 = time.perf_counter()
+    res, launches = drive(lambda: repeat_batch(seqs, min_lag, max_lag,
+                                               stride=stride, device=dev),
+                          "autocorr")
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = [repeat(s, min_lag, max_lag, stride=stride) for s in seqs]
+    host_s = time.perf_counter() - t0
+    bad = [i for i, (a, r) in enumerate(zip(res, ref))
+           if (a.length, a.z_score) != (r.length, r.z_score)]
+    if bad:
+        fail(f"repeat_batch != repeat on rows {bad[:5]}")
+    say(f"autocorr main path (repeat_batch on {dev}): {launches} launch, "
+        f"{wall:.3f} s host to host; all {B} rows' (length, z) equal to "
+        f"repeat's ({sum(r.length > 0 for r in res)} repeats found; repeat "
+        f"on the host {host_s:.2f} s)")
+    return ({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": lib_ms}, launches)
+
+
+def steal_main_path(gfa: str, ref_out: str, ref_maf: str) -> int:
+    """Phase 22 (a): the fused main path in one rank at -t 1 -T 4 through
+    run_smoothing (the engine make_engine builds: the steal on by default,
+    the warm-up in the background); GFA and MAF sha256 equal to phase 5's.
+    Prints stats() and, when nothing was stolen, whether the gate (no call
+    held more device-eligible blocks than max_batch x cards) or the rates
+    held it back.  Returns poa_win's launches."""
+    from smoothxg_tpu_torch import cli
+    from smoothxg_tpu_torch.ops.poa_engine import TorchPOAEngine
+    from smoothxg_tpu_torch.pipeline.run import run_smoothing
+    out, maf = (os.path.join(SMOKE_DIR, f"steal.{x}") for x in ("gfa", "maf"))
+    args = cli.build_parser().parse_args(["-g", gfa, "-o", out, "-m", maf,
+                                          *MAIN_FLAGS, "-T", "4"])
+    cfg = cli.config_from_args(args, add_consensus=not args.vanish_consensus)
+    calls, picks = [], []         # blocks a call; (candidates, stolen)
+    it, select = (TorchPOAEngine.poa_block_batch_iter,
+                  TorchPOAEngine._select_steal)
+
+    def it_spy(self, blocks):
+        calls.append(len(blocks))
+        return it(self, blocks)
+
+    def select_spy(self, blocks, dev):
+        n = sum(map(len, dev.values()))
+        got = select(self, blocks, dev)
+        picks.append((n, len(got)))
+        return got
+
+    TorchPOAEngine.poa_block_batch_iter = it_spy
+    TorchPOAEngine._select_steal = select_spy
+    log = Tee(sys.stderr)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(log):
+            engine, launches = drive(lambda: run_smoothing(cfg)[2], "poa_win")
+    finally:
+        TorchPOAEngine.poa_block_batch_iter = it
+        TorchPOAEngine._select_steal = select
+    wall = time.perf_counter() - t0
+    st = engine.stats()
+    if not picks:
+        why = (f"the gate: no call held more than max_batch x cards = "
+               f"{engine.max_batch * len(engine.devices)} device-eligible "
+               f"blocks (calls of {calls} blocks)")
+    elif not st["stolen"]:
+        why = (f"the rates: {picks} (candidates, stolen) at "
+               f"{st['dev_rows_per_s']} rows/s, {st['host_cells_per_s']} "
+               f"cells/s a worker")
+    else:
+        why = f"(candidates, stolen) a call {picks}"
+    say(f"steal main path (-t 1 -T 4, steal={engine.steal}): {wall:.2f} s "
+        f"wall, {st['stolen']} blocks stolen, {why} "
+        f"({'; '.join(smoothing_phases(log.getvalue()))}); poa_win launches "
+        f"{launches}; stats {json.dumps(st)}")
+    same_bytes("steal main path", out, maf, ref_out, ref_maf)
+    return launches
+
+
+def steal_phase(torch, dev) -> None:
+    """Phase 22 (b): a forced steal on phase 3's blocks: max_batch 8 and
+    rates set on the instance so that about half the device rows go to
+    the native pool; every graph equals the steal-off engine's."""
+    import numpy as np
+    from smoothxg_tpu_torch.ops.poa_engine import POAParams, TorchPOAEngine
+    from smoothxg_tpu_torch.tools.time_chase import (PHASE3_PLAN,
+                                                     phase3_blocks)
+    blocks = [(sq, [1] * len(sq), POAParams(local=local,
+                                             wb=311 if banded else -1))
+              for (_, local, banded, *_), group in zip(
+                  PHASE3_PLAN, phase3_blocks(np.random.default_rng(SEED)))
+              for sq in group]
+    graphs, stats = {}, {}
+    for tag, steal in (("steal", True), ("off", False)):
+        eng = TorchPOAEngine(device=dev, threads=4, max_batch=8, steal=steal)
+        nat, rows = (sum(eng._steal_costs(b[0])[k] for b in blocks)
+                     for k in (0, 1))
+        eng._dev_rows_ps, eng._host_cells_ps = 1.0, nat / rows / 3
+        t0 = time.perf_counter()
+        graphs[tag] = eng.poa_block_batch(blocks)
+        stats[tag] = (time.perf_counter() - t0, eng.stats())
+    wall, st = stats["steal"]
+    done = st["stolen"] + st["device_blocks"] + st["fallbacks"] + st["redo"]
+    if not st["stolen"] or done != len(blocks):
+        fail(f"forced steal: {st['stolen']} stolen, {done} of {len(blocks)} "
+             f"blocks accounted for")
+    for b, (g, h) in enumerate(zip(graphs["steal"], graphs["off"])):
+        if list(g.base) != list(h.base) or [list(p) for p in g.seq_paths] \
+                != [list(p) for p in h.seq_paths]:
+            fail(f"forced steal: block {b}'s graph differs from the "
+                 f"steal-off engine's")
+    say(f"forced steal on phase 3's {len(blocks)} blocks (max_batch 8, "
+        f"threads 4): {st['stolen']} stolen, {st['device_blocks']} on the "
+        f"kernel, {st['redo']} redone; every graph equal to the steal-off "
+        f"engine's ({wall:.2f} s against {stats['off'][0]:.2f} s); rates "
+        f"after: {st['dev_rows_per_s']} rows/s, {st['host_cells_per_s']} "
+        f"cells/s a worker")
+
+
 def engine_run(gfa: str, out: str, maf: str, engine):
     """The main path through the API with a pre-built engine:
     run_smoothing(config_from_args(<the CLI's flags>), engine=engine)."""
@@ -2171,6 +2431,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     ranks_phase(gfa, out2, maf2)
 
+    # phases 21-22: the batched autocorrelation screen, and the host steal
+    entries["autocorr"], launches["autocorr"] = autocorr_phase(
+        torch, dev, clock_mhz)
+    torch.cuda.empty_cache()
+    steal_main_path(gfa, out2, maf2)
+    steal_phase(torch, dev)
+
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "smoothxg_tpu."))
                     or m == "smoothxg_tpu")
@@ -2188,10 +2455,11 @@ def main() -> None:
                 "minhash_hash_long": "smoothxg_tpu/ops/minhash_jax.py:107",
                 "minhash_inter_long": "smoothxg_tpu/ops/minhash_jax.py:139",
                 "ident": "smoothxg_tpu/ops/ident_jax.py:62",
-                "poa_batch": "smoothxg_tpu/ops/poa_jax.py:146"}
+                "poa_batch": "smoothxg_tpu/ops/poa_jax.py:146",
+                "autocorr": "smoothxg_tpu/ops/autocorr.py:74"}
     sources = {"minhash_hash": "minhash", "minhash_inter": "minhash",
                "minhash_hash_long": "minhash", "minhash_inter_long": "minhash",
-               "sgd_plan": "sgd"}
+               "sgd_plan": "sgd", "autocorr": "autocorr"}
     kernels = []
     for n in KERNELS:
         if n in PROBE_FAMILIES:

@@ -3,7 +3,8 @@ imported, into smoothxg_tpu_torch/_build/, keyed by a hash of the sources
 and flags.
 
 * CUDA kernels (the POA kernels, --engine jax's poa_batch.cu, the probes,
-  the SGD layout's sgd.cu and the split stage's minhash.cu and ident.cu):
+  the SGD layout's sgd.cu, the split stage's minhash.cu and ident.cu, and
+  repeat_batch's autocorr.cu):
   each csrc/*.cu (with the
   shared csrc/*.cuh) compiles with its own nvcc process, all started
   together, and one nvcc call links the objects into one shared library
@@ -149,6 +150,11 @@ def host_lib(name: str) -> str | None:
     return path
 
 
+def loaded() -> bool:
+    """Whether this process has loaded the kernel library."""
+    return _LIB is not None
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call."""
     global _LIB
@@ -191,9 +197,14 @@ def load() -> ctypes.CDLL:
             lib.minhash_hash_launch.argtypes = [vp] * 4 + [ci] * 4 + [vp]
             lib.minhash_inter_launch.argtypes = [vp] * 3 + [ci] * 3 + [vp]
             lib.ident_launch.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+            # the batched autocorrelation screen (csrc/autocorr.cu)
+            lib.autocorr_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp]
+            lib.autocorr_geometry.argtypes = [ci] * 3 + [vp]
+            lib.autocorr_geometry.restype = ci
             for fn in ("sgd_plan_launch", "sgd_chain_launch",
                        "minhash_hash_launch",
-                       "minhash_inter_launch", "ident_launch"):
+                       "minhash_inter_launch", "ident_launch",
+                       "autocorr_launch"):
                 getattr(lib, fn).restype = ci
             lib.poa_win_error_string.argtypes = [ci]
             lib.poa_win_error_string.restype = ctypes.c_char_p

@@ -10,14 +10,25 @@ seq[L:].  A lag is reported as a repeat period when its z-score against the
 distribution over all sampled lags is >= min_z; we return the best such lag.
 Vectorized with numpy on the host: the screen runs once per oversized block
 inside the (already pooled) break stage, where sequences are short and the
-host cost is noise next to the POA fill.  (The JAX package's batched device
-route, repeat_batch, is not ported: the pipeline never calls it.)
+host cost is noise next to the POA fill.
+
+`repeat_batch` is the batched route (the JAX package's `repeat_batch` on its
+jitted `_counts_fn`): the exact integer match counts of every (sequence,
+lag) come from `autocorr_counts`, which launches csrc/autocorr.cu for CUDA
+tensors and runs its plain PyTorch version, `autocorr_counts_reference`,
+for CPU tensors; the statistics (corr = count / window, mu, sd and z in
+float64) run on the host as in `repeat`, so every route gives the same
+bits.  Like the JAX package's, the pipeline never calls it
+(pipeline/breaks.py calls `repeat`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from ..device import resolve
 
 
 @dataclass
@@ -54,3 +65,163 @@ def repeat(seq: np.ndarray | bytes | str,
     if z[best] >= min_z:
         return Repeat(float(lags[best]), float(z[best]))
     return Repeat(0.0, float(z[best]))
+
+
+# ---------------------------------------------------------------------------
+# Batched device route: (B, G) int32 match counts on the run's device, the
+# statistics on the host in float64.
+# ---------------------------------------------------------------------------
+
+_CHUNK_ELEMS = 1 << 24      # compares a chunk of the plain version holds
+
+
+def autocorr_counts_reference(rows: torch.Tensor, lens: torch.Tensor,
+                              lags: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of csrc/autocorr.cu, on any device: for each
+    row b and lag g, the positions p with p + lag < lens[b] and rows[b, p]
+    == rows[b, p + lag] (the XLA function's roll, compare and mask),
+    chunked over the lags so that no chunk holds more than _CHUNK_ELEMS
+    compares.  Lengths are clipped to [0, Lpad] and a negative lag counts
+    0, as in the kernel.  (B, G) int32."""
+    B, Lpad = rows.shape
+    G = lags.numel()
+    out = torch.zeros((B, G), dtype=torch.int32, device=rows.device)
+    if B == 0 or G == 0 or Lpad == 0:
+        return out
+    pos = torch.arange(Lpad, device=rows.device)
+    n = lens.long().clamp(0, Lpad)[:, None, None]
+    step = max(1, _CHUNK_ELEMS // (B * Lpad))
+    for g0 in range(0, G, step):
+        lg = lags[g0:g0 + step].long()
+        idx = pos[None, :] + lg[:, None]                     # (c, Lpad)
+        ok = (idx[None] < n) & (lg >= 0)[None, :, None]      # (B, c, Lpad)
+        eq = rows[:, None, :] == rows[:, idx.clamp(0, Lpad - 1)]
+        out[:, g0:g0 + step] = (eq & ok).sum(dim=2, dtype=torch.int32)
+    return out
+
+
+def autocorr_counts(rows: torch.Tensor, lens: torch.Tensor,
+                    lags: torch.Tensor) -> torch.Tensor:
+    """Match counts of rows (B, Lpad) uint8 with lens (B,) int32 at lags
+    (G,) int32, on the rows' device.  CUDA tensors launch csrc/autocorr.cu
+    on the current stream (and raise on a launch error); CPU tensors run
+    `autocorr_counts_reference`.  (B, G) int32."""
+    if rows.dtype != torch.uint8 or rows.dim() != 2 \
+            or lens.dtype != torch.int32 or lens.shape != rows.shape[:1] \
+            or lags.dtype != torch.int32 or lags.dim() != 1 \
+            or lens.device != rows.device or lags.device != rows.device:
+        raise ValueError("autocorr_counts wants rows (B, Lpad) uint8, lens "
+                         "(B,) int32 and lags (G,) int32 on one device")
+    if rows.device.type == "cpu":
+        return autocorr_counts_reference(rows, lens, lags)
+    if rows.device.type != "cuda":
+        raise ValueError(f"autocorr_counts: unsupported device {rows.device}")
+    B, Lpad = rows.shape
+    G = lags.numel()
+    out = torch.empty((B, G), dtype=torch.int32, device=rows.device)
+    if B == 0 or G == 0:
+        return out
+    rows, lens, lags = word_rows(rows), lens.contiguous(), lags.contiguous()
+    from . import _build
+    lib = _build.load()
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    with torch.cuda.device(rows.device):
+        rc = lib.autocorr_launch(rows.data_ptr(), lens.data_ptr(),
+                                 lags.data_ptr(), out.data_ptr(), B,
+                                 rows.shape[1], G, stream)
+    if rc != 0:
+        raise RuntimeError(f"autocorr kernel launch failed: CUDA error {rc} "
+                           f"({lib.poa_win_error_string(rc).decode()})")
+    autocorr_counts.launches += 1
+    return out
+
+
+autocorr_counts.launches = 0    # kernel launches made by this wrapper
+
+
+def word_rows(rows: torch.Tensor) -> torch.Tensor:
+    """The rows as the kernel reads them: contiguous, 4-byte aligned, and
+    padded with zero columns to a multiple of 4 (the padding lies past
+    every length, so no count changes)."""
+    B, Lpad = rows.shape
+    if Lpad % 4 == 0 and rows.is_contiguous() and rows.data_ptr() % 4 == 0:
+        return rows
+    out = torch.zeros((B, -(-Lpad // 4) * 4), dtype=torch.uint8,
+                      device=rows.device)
+    out[:, :Lpad] = rows
+    return out
+
+
+def geometry(B: int, Lpad: int, G: int) -> dict:
+    """The kernel's launch geometry on the current card: the row staged in
+    shared memory (1) or read from device memory (0), blocks, threads a
+    block, shared bytes."""
+    import ctypes
+    from . import _build
+    geo = (ctypes.c_int * 4)()
+    _build.load().autocorr_geometry(B, -(-Lpad // 4) * 4, G, geo)
+    return dict(zip(("shared", "blocks", "threads", "smem"), geo))
+
+
+def _encode(s) -> np.ndarray:
+    if isinstance(s, str):
+        s = s.encode()
+    if isinstance(s, (bytes, bytearray)):
+        s = np.frombuffer(bytes(s), dtype=np.uint8)
+    return np.asarray(s, dtype=np.uint8)
+
+
+def repeat_batch(seqs: list, min_lag: int, max_lag: int,
+                 min_z: float = 5.0, stride: int = 50,
+                 device: str | torch.device = "cuda") -> list[Repeat]:
+    """Batched `repeat` over many sequences: one `autocorr_counts` call on
+    `device` ("cuda" launches the kernel and raises without a card; "cpu"
+    runs the plain version), then the same per-sequence lag grid, windows
+    and z statistics as `repeat`, bit-identical to it and to the JAX
+    package's repeat_batch.  The rows are padded to a multiple of 4 bytes,
+    not to the JAX package's power-of-two bucket: no count depends on the
+    padding."""
+    dev = resolve(device, what="repeat_batch's counts run on the GPU",
+                  instead="pass device='cpu' for the plain version")
+    if not seqs:
+        return []
+    enc = [_encode(s) for s in seqs]
+    lens = np.array([len(s) for s in enc], dtype=np.int32)
+    # shared lag grid: covers every sequence's range; per-sequence
+    # validity masks off lags past its own hi = min(max_lag, n//2)
+    hi_all = int(min(max_lag, int(lens.max()) // 2))
+    if hi_all <= min_lag:
+        return [Repeat(0.0, 0.0) for _ in enc]
+    lags = np.arange(min_lag, hi_all + 1, max(stride, 1)).astype(np.int32)
+    Lpad = max(4, -(-int(lens.max()) // 4) * 4)
+    buf = np.zeros((len(enc), Lpad), dtype=np.uint8)
+    for i, s in enumerate(enc):
+        buf[i, :len(s)] = s
+    cnt = autocorr_counts(torch.from_numpy(buf).to(dev),
+                          torch.from_numpy(lens).to(dev),
+                          torch.from_numpy(lags).to(dev)).cpu().numpy()
+    out: list[Repeat] = []
+    for b in range(len(enc)):
+        n = int(lens[b])
+        hi = min(max_lag, n // 2)
+        if hi <= min_lag:
+            out.append(Repeat(0.0, 0.0))
+            continue
+        sel = lags <= hi
+        if int(sel.sum()) < 3:
+            out.append(Repeat(0.0, 0.0))
+            continue
+        windows = (n - lags[sel]).astype(np.float64)
+        corrs = cnt[b, sel].astype(np.float64) / windows
+        mu = corrs.mean()
+        sd = corrs.std()
+        if sd <= 0:
+            out.append(Repeat(0.0, 0.0))
+            continue
+        z = (corrs - mu) / sd
+        best = int(np.argmax(z))
+        if z[best] >= min_z:
+            out.append(Repeat(float(lags[sel][best]), float(z[best])))
+        else:
+            out.append(Repeat(0.0, float(z[best])))
+    return out

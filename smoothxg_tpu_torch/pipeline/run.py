@@ -126,7 +126,14 @@ def make_engine(cfg: Config, device: str | torch.device = "cuda"):
     threads = cfg.poa_threads or cfg.threads or 1
     if cfg.engine == "fused":
         from ..ops.poa_engine import TorchPOAEngine
-        return TorchPOAEngine(device=device, threads=threads)
+        eng = TorchPOAEngine(device=device, threads=threads)
+        # build the kernels and launch exactly the (local, banded) variant
+        # this run uses in the background, while load, prep, indexing and
+        # block finding run on the host; the first POA batch waits for it
+        eng.warmup_async(
+            locals_=(cfg.local_alignment and not cfg.use_abpoa,),
+            banded=(cfg.use_abpoa,))
+        return eng
     if cfg.engine == "pallas":
         from ..ops.poa_round import TorchRoundPOAEngine
         return TorchRoundPOAEngine(device=device)

@@ -1,7 +1,7 @@
 // cuda_emu.h — just enough of the CUDA runtime (and cuda_pipeline.h's
 // asynchronous copies) to run the port's POA
-// kernels, its split-stage and SGD kernels and its probes on the CPU, for
-// testing their
+// kernels, its split-stage, SGD and autocorrelation kernels and its probes
+// on the CPU, for testing their
 // logic where there is no GPU (smoothxg_tpu_torch/testing/cuda_emu.py
 // compiles a kernel source against it with g++ -std=c++20).
 //
@@ -119,6 +119,17 @@ inline void __trap() { std::abort(); }
 #define SPIN_PAUSE() std::this_thread::yield()
 inline unsigned atomicOr(unsigned* p, unsigned v) {
     return std::atomic_ref<unsigned>(*p).fetch_or(v);
+}
+// the byte-wise and funnel intrinsics of the autocorrelation kernel
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+    const unsigned long long v = ((unsigned long long)hi << 32) | lo;
+    return (unsigned)(v >> (shift & 31));
+}
+inline unsigned __vcmpeq4(unsigned a, unsigned b) {
+    unsigned r = 0;
+    for (int i = 0; i < 32; i += 8)
+        if (((a >> i) & 0xFFu) == ((b >> i) & 0xFFu)) r |= 0xFFu << i;
+    return r;
 }
 inline unsigned __umulhi(unsigned a, unsigned b) {
     return (unsigned)(((unsigned long long)a * b) >> 32);
@@ -376,6 +387,17 @@ inline unsigned __ballot_sync(unsigned, int pred) {
     unsigned r = 0;
     for (int i = 0; i < 32; ++i)
         if (w.buf[i]) r |= 1u << i;
+    w.bar.arrive_and_wait();
+    return r;
+}
+template <typename T>
+inline T __reduce_add_sync(unsigned, T v) {
+    emu::Warp& w = emu::warp();
+    const int lane = threadIdx.x & 31;
+    w.buf[lane] = (long long)v;
+    w.bar.arrive_and_wait();
+    T r = 0;
+    for (int i = 0; i < 32; ++i) r += (T)w.buf[i];
     w.bar.arrive_and_wait();
     return r;
 }

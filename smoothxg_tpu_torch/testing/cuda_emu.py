@@ -1,6 +1,6 @@
 """Run a kernel source of the port (csrc/poa_win.cu, poa_code.cu,
 poa_stacked.cu, poa_round.cu, poa_batch.cu, probes.cu, sgd.cu, minhash.cu,
-ident.cu) on
+ident.cu, autocorr.cu) on
 the CPU, for testing its logic where there is no GPU and no nvcc.
 
 `build(name, workdir)` rewrites csrc/<name>.cu for the CUDA emulation in
@@ -24,10 +24,11 @@ shared or device memory, shared bytes, blocks an SM).
 `run_probe(exe, family, ...)` launches `probe_<family>_launch` of probes.cu
 and returns its 128 outputs.  `run_sgd` (sgd.cu's plan and chain, or the
 chain alone on a given plan), `run_minhash_hash` (either route),
-`run_minhash_inter` (tiles of given rows, or the long route) and
-`run_ident` (ident.cu's warp or block kernel, by the band) launch the
-entries of sgd.cu, minhash.cu and ident.cu on the inputs their wrappers
-take.  A race between threads shows as a hang, so
+`run_minhash_inter` (tiles of given rows, or the long route),
+`run_ident` (ident.cu's warp or block kernel, by the band) and
+`run_autocorr` (autocorr.cu, its row in shared or device memory by the
+emulated shared memory, with the geometry) launch the entries of sgd.cu,
+minhash.cu, ident.cu and autocorr.cu on the inputs their wrappers take.  A race between threads shows as a hang, so
 callers run it under a timeout.  The emulated device has an H100's SM
 count and shared memory limits unless `sms`, `smem_block` and `smem_sm`
 say otherwise; a launch the card would refuse for its shared memory fails.
@@ -309,7 +310,34 @@ int main(int argc, char** argv) {
     return rc;
 }
 """
-_MAINS = {"sgd": _SGD_MAIN, "minhash": _MINHASH_MAIN, "ident": _IDENT_MAIN}
+_AUTOCORR_MAIN = _READ + r"""
+int main(int argc, char** argv) {
+    FILE* f = std::fopen(argv[1], "rb");
+    auto hd = rd<int32_t>(f, 6);
+    const int B = hd[0], Lpad = hd[1], G = hd[2];
+    emu::sms = hd[3]; emu::smem_block = hd[4]; emu::smem_sm = hd[5];
+    auto rows = rd<uint8_t>(f, (size_t)B * Lpad);
+    auto lens = rd<int32_t>(f, B);
+    auto lags = rd<int32_t>(f, G);
+    std::fclose(f);
+    std::vector<int32_t> out((size_t)B * G + 1, 7), geo(4, 0);
+    // the rows 4-byte aligned, as a torch allocation is
+    std::vector<uint32_t> words(((size_t)B * Lpad + 3) / 4 + 1);
+    std::memcpy(words.data(), rows.data(), (size_t)B * Lpad);
+    const int rc = autocorr_launch(
+        reinterpret_cast<const uint8_t*>(words.data()), lens.data(),
+        lags.data(), out.data(), B, Lpad, G, nullptr);
+    autocorr_geometry(B, Lpad, G, geo.data());
+    f = std::fopen(argv[2], "wb");
+    wr(f, out, (size_t)B * G);
+    wr(f, geo, 4);
+    std::fclose(f);
+    return rc;
+}
+"""
+AUTOCORR_GEOMETRY = ("shared", "blocks", "threads", "smem")
+_MAINS = {"sgd": _SGD_MAIN, "minhash": _MINHASH_MAIN, "ident": _IDENT_MAIN,
+          "autocorr": _AUTOCORR_MAIN}
 
 
 def _rewrite(src: str) -> str:
@@ -527,3 +555,20 @@ def run_ident(exe: str, a, aoff, la, b, boff, lb, band: int = 128,
     raw = _run_raw(exe, [P, a.numel(), b.numel(), band, mismatch, gap_open,
                          gap_ext, 0], (a, aoff, la, b, boff, lb), timeout)
     return torch.from_numpy(np.frombuffer(raw, np.int32).reshape(P, 4).copy())
+
+
+def run_autocorr(exe: str, rows, lens, lags, timeout: float = 120.0,
+                 sms: int = SMS, smem_block: int = SMEM_BLOCK,
+                 smem_sm: int = SMEM_SM):
+    """autocorr.cu's autocorr_launch on ops/autocorr.autocorr_counts' CPU
+    tensors (rows (B, Lpad) uint8 with Lpad % 4 == 0, lens (B,) and lags
+    (G,) int32); returns ((B, G) int32 counts, the launch geometry as a
+    dict: the row staged in shared memory, blocks, threads a block, shared
+    bytes)."""
+    B, Lpad = rows.shape
+    G = lags.numel()
+    raw = np.frombuffer(_run_raw(exe, [B, Lpad, G, sms, smem_block,
+                                       smem_sm], (rows, lens, lags),
+                                 timeout), np.int32)
+    return (torch.from_numpy(raw[:B * G].reshape(B, G).copy()),
+            dict(zip(AUTOCORR_GEOMETRY, raw[B * G:B * G + 4].tolist())))
