@@ -124,9 +124,12 @@ result:
      repeats of 1-8 kb periods, random rows, runs of N) at the CLI's lag
      grid (1,000-20,000 every 50) equal to its plain version exactly,
      timed beside it and beside a grouped conv1d over one-hot rows (the
-     library column, where its counts are exact), with the bound, the
-     launch geometry and the ptxas registers; then the repeat_batch path
-     on the card, every row's (length, z) equal to the host `repeat`'s.
+     library column, where its counts are exact), with both bounds, the
+     launch geometry, the plan (units, rows a route) and the ptxas
+     registers of the pack and count kernels; the same on 32 seeded rows
+     heavy in escapes (lower case, all N, random bytes, soft-masked); then
+     the repeat_batch path on the card, every row's (length, z) equal to
+     the host `repeat`'s.
  22. steal: (a) the fused main path in one rank at -t 1 -T 4 through
      run_smoothing (the host steal on by default, the kernel build and
      warm-up in the background): GFA and MAF sha256 equal to phase 5's,
@@ -1042,8 +1045,8 @@ def build_summary(log: str) -> str:
                       ("minhash_inter", "minhash_inter_kernel"),
                       ("minhash_inter_long", "minhash_inter_long_kernel"),
                       ("ident_block", "ident_block_kernel"),
-                      ("autocorr (shared)", "autocorr_kernelILb1"),
-                      ("autocorr (device)", "autocorr_kernelILb0")):
+                      ("autocorr_pack", "autocorr_pack_kernel"),
+                      ("autocorr_count", "autocorr_count_kernel")):
         mine = [r for e, r in regs.items() if tag in e]
         parts.append(f"{name} " + (
             f"{used(mine[0])} registers, {spilled(mine[0])}" if mine
@@ -1978,36 +1981,6 @@ def ranks_phase(gfa: str, ref_out: str, ref_maf: str) -> None:
     same_bytes("two-rank main path", out, maf, ref_out, ref_maf)
 
 
-# phase 21: the batched autocorrelation screen at the CLI's defaults (-c
-# 1000, -C 20000 and the lag stride 50, cli.py), on 128 seeded rows
-AC_ROWS = 128
-AC_LAGS = (1000, 20000, 50)
-
-
-def autocorr_rows(rng, n: int = AC_ROWS) -> list:
-    """Phase 21's rows of 2-40 kb, by fours: two tandem repeats of a 1-8 kb
-    period with 1% point mutations, a random row and a random row with
-    runs of N."""
-    import numpy as np
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    rows = []
-    for i in range(n):
-        L = int(rng.integers(2000, 40001))
-        if i % 4 < 2:
-            period = int(rng.choice([1000, 1500, 2050, 3000, 5000, 8000]))
-            s = np.resize(acgt[rng.integers(0, 4, period)], L)
-            pos = rng.integers(0, L, L // 100)
-            s[pos] = acgt[rng.integers(0, 4, len(pos))]
-        else:
-            s = acgt[rng.integers(0, 4, L)]
-            if i % 4 == 3:
-                for _ in range(3):
-                    a = int(rng.integers(0, L))
-                    s[a:a + int(rng.integers(100, 2000))] = ord("N")
-        rows.append(s)
-    return rows
-
-
 def conv1d_counts(torch, buf, lens, lags, want):
     """The match counts by one grouped torch.nn.functional.conv1d over
     one-hot rows (a channel a symbol of the batch, each row's one-hot the
@@ -2045,26 +2018,39 @@ def conv1d_counts(torch, buf, lens, lags, want):
         f"exact ({S} symbols, {B * S} groups of {Lpad} taps)"
 
 
+def autocorr_plan_line(stats: dict, lens, lags) -> str:
+    """A plan's units (position compares a unit: mean and max of the
+    stretch x lag group), those read from device memory, and its rows a
+    route."""
+    from smoothxg_tpu_torch.ops.autocorr import unit_positions
+    pos = unit_positions(stats, lens, lags)
+    return (f"{stats['units']} units of {stats['lags_per_unit']} lags x a "
+            f"stretch ({pos.mean():.0f} position compares a unit on "
+            f"average, at most {pos.max()}), {stats['device_units']} from "
+            f"device memory; rows a route {stats['routes']}")
+
+
 def autocorr_phase(torch, dev, clock_mhz):
     """Phase 21.  Returns the kernel's JSON entry fields and its launches
     on the repeat_batch path."""
-    import numpy as np
     from smoothxg_tpu_torch.ops import _build
     from smoothxg_tpu_torch.ops.autocorr import (autocorr_counts,
                                                  autocorr_counts_reference,
                                                  geometry, repeat,
                                                  repeat_batch)
-    seqs = autocorr_rows(np.random.default_rng(SEED + 21))
-    min_lag, max_lag, stride = AC_LAGS
-    lens = np.array([len(s) for s in seqs], np.int32)
-    lags = np.arange(min_lag, min(max_lag, int(lens.max()) // 2) + 1,
-                     stride).astype(np.int32)
-    B, G, Lpad = len(seqs), len(lags), -(-int(lens.max()) // 4) * 4
-    buf = np.zeros((B, Lpad), np.uint8)
-    for b, s in enumerate(seqs):
-        buf[b, :len(s)] = s
+    from smoothxg_tpu_torch.tools.time_autocorr import (LAGS, batch, bounds,
+                                                        escape_rows,
+                                                        phase21_rows)
+    # phase 21's rows (tandem, random, runs of N) and the escape-heavy ones
+    # (lower case, all N, random bytes, soft-masked), seeded from SEED + 21
+    # and + 22, at the CLI's defaults (-c 1000, -C 20000, stride 50)
+    seqs = phase21_rows(seed=SEED + 21)
+    min_lag, max_lag, stride = LAGS
+    buf, lens, lags = batch(seqs)
+    B, G, Lpad = len(seqs), len(lags), buf.shape[1]
     ins = [torch.from_numpy(x).to(dev) for x in (buf, lens, lags)]
-    got = autocorr_counts(*ins)
+    stats: dict = {}
+    got = autocorr_counts(*ins, stats=stats)
     want = autocorr_counts_reference(*ins)
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max())
@@ -2074,33 +2060,60 @@ def autocorr_phase(torch, dev, clock_mhz):
     plain_ms = cuda_ms(torch, lambda: autocorr_counts_reference(*ins))
     lib_ms, lib_note = conv1d_counts(torch, buf, lens, lags, want)
     torch.cuda.empty_cache()
-    # the least time: every window's 4-byte word compares at 132 SMs x 128
-    # lanes x clock, or the rows read once and the counts written once
-    win = np.maximum(lens[:, None].astype(np.int64) - lags[None, :], 0)
-    words = int(((win + 3) // 4).sum())
-    ops_ms = words / (132 * 128 * clock_mhz * 1e6) * 1e3
-    nbytes = int(lens.sum()) + 4 * (B * G + B + G)
-    bytes_ms = nbytes / 3.35e12 * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    # the least time: every window's positions at 16 a lane operation (two
+    # 32-position planes, two operations a word) at 132 SMs x 128 lanes x
+    # clock, or the rows read once and the counts written once; beside it
+    # the first design's bound, a lane operation a 4-byte word compare
+    bd = bounds(lens, lags, clock_mhz)
+    bound_ms = max(bd["density_ms"], bd["bytes_ms"])
+    bound_by = "operations" if bd["density_ms"] >= bd["bytes_ms"] \
+        else "bytes"
     geo = geometry(B, Lpad, G)
-    regs = {where: f"{used(r)} registers, {spilled(r)}"
+    regs = {name: f"{used(r)} registers, {spilled(r)}"
             for e, r in ptxas_registers(_build.build_log["ptxas"]).items()
-            for tag, where in (("ILb1", "shared"), ("ILb0", "device"))
-            if f"autocorr_kernel{tag}" in e}
+            for name in ("autocorr_pack_kernel", "autocorr_count_kernel")
+            if name in e}
     say(f"autocorr: {B} rows of {int(lens.min())}-{int(lens.max())} bases "
         f"({int(lens.sum())} in all; tandem, random, runs of N), {G} lags "
-        f"{int(lags[0])}-{int(lags[-1])} every {stride}: kernel equal to "
+        f"{int(lags[0])}-{int(lags[-1])} every {stride}: kernels equal to "
         f"the plain version (max abs err 0, tolerance 0: integer counts); "
-        f"kernel {ms:.4f} ms, plain version {plain_ms:.3f} ms, grouped "
-        f"conv1d over one-hot rows "
+        f"kernels {ms:.4f} ms a call, plain version {plain_ms:.3f} ms, "
+        f"grouped conv1d over one-hot rows "
         f"{'%.3f ms' % lib_ms if lib_ms is not None else 'none'} "
-        f"({lib_note}); bound {bound_ms:.4f} ms by {bound_by} ({words} "
-        f"word compares at {clock_mhz:.0f} MHz: {ops_ms:.4f} ms; {nbytes} B "
-        f"at 3.35 TB/s: {bytes_ms:.4f} ms); geometry: row in "
-        f"{'shared' if geo['shared'] else 'device'} memory, {geo['blocks']} "
-        f"blocks of {geo['threads']} threads (a row and 32 lags a block), "
-        f"{geo['smem']} B shared; ptxas {regs or 'no report'}")
+        f"({lib_note}); bound {bound_ms:.4f} ms by {bound_by} "
+        f"({bd['positions']} position compares at 16 a lane operation at "
+        f"{clock_mhz:.0f} MHz: {bd['density_ms']:.4f} ms; {bd['bytes']} B "
+        f"at 3.35 TB/s: {bd['bytes_ms']:.4f} ms; the first design's "
+        f"{bd['word_compares']} 4-byte word compares: "
+        f"{bd['word_ms']:.4f} ms)")
+    say(f"autocorr geometry: {geo['pack_blocks']} pack blocks (a chunk of "
+        f"8,192 positions of a row each), then {geo['grid']} persistent "
+        f"count blocks of {geo['threads']} threads ({geo['blocks_per_sm']} "
+        f"an SM, {geo['smem']} B shared each in two staging buffers, a unit "
+        f"list of up to "
+        f"{geo['unit_cap']}); plan: {autocorr_plan_line(stats, lens, lags)};"
+        f" ptxas {regs or 'no report'}")
+    # the escape-heavy batch: lower case, all N, random bytes, soft-masked
+    eseqs = escape_rows(seed=SEED + 22)
+    ebuf, elens, elags = batch(eseqs)
+    eins = [torch.from_numpy(x).to(dev) for x in (ebuf, elens, elags)]
+    estats: dict = {}
+    egot = autocorr_counts(*eins, stats=estats)
+    ewant = autocorr_counts_reference(*eins)
+    torch.cuda.synchronize()
+    eerr = int((egot.long() - ewant.long()).abs().max())
+    if eerr:
+        fail(f"autocorr kernel != plain version on the escape-heavy batch: "
+             f"max abs err {eerr}")
+    ems = cuda_ms(torch, lambda: autocorr_counts(*eins), reps=20)
+    ebd = bounds(elens, elags, clock_mhz)
+    say(f"autocorr, escape-heavy batch: {len(eseqs)} rows of "
+        f"{int(elens.min())}-{int(elens.max())} bases (lower case, all N, "
+        f"random bytes, soft-masked), {len(elags)} lags: equal to the plain "
+        f"version (max abs err 0); kernels {ems:.4f} ms a call, bound "
+        f"{max(ebd['density_ms'], ebd['bytes_ms']):.4f} ms (the first "
+        f"design's {ebd['word_ms']:.4f} ms); plan: "
+        f"{autocorr_plan_line(estats, elens, elags)}")
     t0 = time.perf_counter()
     res, launches = drive(lambda: repeat_batch(seqs, min_lag, max_lag,
                                                stride=stride, device=dev),
@@ -2113,11 +2126,12 @@ def autocorr_phase(torch, dev, clock_mhz):
            if (a.length, a.z_score) != (r.length, r.z_score)]
     if bad:
         fail(f"repeat_batch != repeat on rows {bad[:5]}")
-    say(f"autocorr main path (repeat_batch on {dev}): {launches} launch, "
-        f"{wall:.3f} s host to host; all {B} rows' (length, z) equal to "
-        f"repeat's ({sum(r.length > 0 for r in res)} repeats found; repeat "
-        f"on the host {host_s:.2f} s)")
-    return ({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    say(f"autocorr main path (repeat_batch on {dev}): {launches} launches "
+        f"(the pack and count kernels), {wall:.3f} s host to host; all {B} "
+        f"rows' (length, z) equal to repeat's "
+        f"({sum(r.length > 0 for r in res)} repeats found; repeat on the "
+        f"host {host_s:.2f} s)")
+    return ({"max_abs_err": max(err, eerr), "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": lib_ms}, launches)
 

@@ -198,9 +198,11 @@ def load() -> ctypes.CDLL:
             lib.minhash_inter_launch.argtypes = [vp] * 3 + [ci] * 3 + [vp]
             lib.ident_launch.argtypes = [vp] * 7 + [ci] * 5 + [vp]
             # the batched autocorrelation screen (csrc/autocorr.cu)
-            lib.autocorr_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp]
+            lib.autocorr_launch.argtypes = [vp] * 5 + [ci] * 3 + [vp]
             lib.autocorr_geometry.argtypes = [ci] * 3 + [vp]
             lib.autocorr_geometry.restype = ci
+            lib.autocorr_scratch_bytes.argtypes = [ci] * 3
+            lib.autocorr_scratch_bytes.restype = ctypes.c_longlong
             for fn in ("sgd_plan_launch", "sgd_chain_launch",
                        "minhash_hash_launch",
                        "minhash_inter_launch", "ident_launch",

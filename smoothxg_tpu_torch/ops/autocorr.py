@@ -101,11 +101,14 @@ def autocorr_counts_reference(rows: torch.Tensor, lens: torch.Tensor,
 
 
 def autocorr_counts(rows: torch.Tensor, lens: torch.Tensor,
-                    lags: torch.Tensor) -> torch.Tensor:
+                    lags: torch.Tensor, stats: dict | None = None
+                    ) -> torch.Tensor:
     """Match counts of rows (B, Lpad) uint8 with lens (B,) int32 at lags
     (G,) int32, on the rows' device.  CUDA tensors launch csrc/autocorr.cu
-    on the current stream (and raise on a launch error); CPU tensors run
-    `autocorr_counts_reference`.  (B, G) int32."""
+    on the current stream, its pack kernel and its count kernel (and raise
+    on a launch error); CPU tensors run `autocorr_counts_reference`.  A
+    `stats` dict on a CUDA call gets the plan the kernels made
+    (`plan_stats`; this waits for the launch).  (B, G) int32."""
     if rows.dtype != torch.uint8 or rows.dim() != 2 \
             or lens.dtype != torch.int32 or lens.shape != rows.shape[:1] \
             or lags.dtype != torch.int32 or lags.dim() != 1 \
@@ -122,21 +125,68 @@ def autocorr_counts(rows: torch.Tensor, lens: torch.Tensor,
     if B == 0 or G == 0:
         return out
     rows, lens, lags = word_rows(rows), lens.contiguous(), lags.contiguous()
+    Lw = rows.shape[1]
     from . import _build
     lib = _build.load()
+    scratch = torch.empty(lib.autocorr_scratch_bytes(B, Lw, G),
+                          dtype=torch.uint8, device=rows.device)
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     with torch.cuda.device(rows.device):
         rc = lib.autocorr_launch(rows.data_ptr(), lens.data_ptr(),
-                                 lags.data_ptr(), out.data_ptr(), B,
-                                 rows.shape[1], G, stream)
+                                 lags.data_ptr(), out.data_ptr(),
+                                 scratch.data_ptr(), B, Lw, G, stream)
     if rc != 0:
-        raise RuntimeError(f"autocorr kernel launch failed: CUDA error {rc} "
-                           f"({lib.poa_win_error_string(rc).decode()})")
-    autocorr_counts.launches += 1
+        raise RuntimeError(f"autocorr kernel launch failed: CUDA error {rc}")
+    autocorr_counts.launches += 2
+    if stats is not None:
+        h = scratch[:4 * PLAN_HEADER].view(torch.int32).tolist()
+        stats.update(plan_stats(scratch[:4 * (h[7] + 4 * h[0])]
+                                .view(torch.int32).cpu()))
     return out
 
 
-autocorr_counts.launches = 0    # kernel launches made by this wrapper
+autocorr_counts.launches = 0    # kernel launches made by this wrapper (2 a
+                                # call: the pack kernel, the count kernel)
+
+
+PLAN_HEADER = 16                # int32 header of csrc/autocorr.cu's plan
+ROUTES = ("acgt", "acgtn", "escape", "bytes")
+
+
+def plan_stats(plan: torch.Tensor) -> dict:
+    """The plan csrc/autocorr.cu's pack kernel made, from the scratch's
+    first int32 (its header, the row counters, the unit list from int32
+    header[7]): units, rows a route
+    (`ROUTES`: A/C/G/T only, with N, with a few escapes, the bytes),
+    units read from device memory, lags a unit, positions a stretch a
+    route, and the list, (units, 4) int32: row, first word, first word of
+    the lags' shifted windows, (lag group << 16) | (the windows' span of
+    words << 3) | (device memory << 2) | route."""
+    h = plan[:PLAN_HEADER].tolist()
+    return {"units": h[0], "routes": dict(zip(ROUTES, h[1:5])),
+            "device_units": h[5], "lags_per_unit": h[6],
+            "stretch": dict(zip(ROUTES, h[8:12])),
+            "list": plan[h[7]:h[7] + 4 * h[0]].reshape(-1, 4)}
+
+
+def unit_positions(stats: dict, lens, lags) -> np.ndarray:
+    """Position compares of each unit of a plan (`plan_stats`): for every
+    lag of the unit that reaches its stretch, the positions of its window
+    inside the stretch."""
+    u = stats["list"].numpy().astype(np.int64)
+    if not len(u):
+        return np.zeros(0, np.int64)
+    lens, lags = np.asarray(lens, np.int64), np.asarray(lags, np.int64)
+    route = u[:, 3] & 3
+    span = np.array([stats["stretch"][r] for r in ROUTES])[route]
+    p0 = u[:, 1] * np.where(route == 3, 4, 32)
+    n = lens[u[:, 0]]
+    lg = stats["lags_per_unit"]
+    g = (u[:, 3] >> 16)[:, None] * lg + np.arange(lg)[None, :]
+    lag = lags[np.minimum(g, len(lags) - 1)]
+    ok = (g < len(lags)) & (lag >= 0) & (lag < n[:, None])
+    end = np.minimum(n[:, None] - lag, (p0 + span)[:, None])
+    return np.where(ok, np.clip(end - p0[:, None], 0, None), 0).sum(1)
 
 
 def word_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -152,15 +202,21 @@ def word_rows(rows: torch.Tensor) -> torch.Tensor:
     return out
 
 
+GEOMETRY = ("grid", "threads", "smem", "blocks_per_sm", "unit_cap",
+            "pack_blocks", "lags_per_unit", "buffer_words")
+
+
 def geometry(B: int, Lpad: int, G: int) -> dict:
-    """The kernel's launch geometry on the current card: the row staged in
-    shared memory (1) or read from device memory (0), blocks, threads a
-    block, shared bytes."""
+    """The kernels' launch geometry on the current card (`GEOMETRY`): the
+    count kernel's persistent blocks, threads a block, shared bytes a
+    block (two staging buffers) and blocks an SM, the unit list's
+    capacity, the pack kernel's blocks (a chunk of 8,192 positions of a
+    row each), lags a unit and the words of a staging buffer."""
     import ctypes
     from . import _build
-    geo = (ctypes.c_int * 4)()
+    geo = (ctypes.c_int * 8)()
     _build.load().autocorr_geometry(B, -(-Lpad // 4) * 4, G, geo)
-    return dict(zip(("shared", "blocks", "threads", "smem"), geo))
+    return dict(zip(GEOMETRY, geo))
 
 
 def _encode(s) -> np.ndarray:

@@ -60,7 +60,7 @@ constexpr int cudaDevAttrMultiProcessorCount = 16;
 constexpr int cudaDevAttrMaxSharedMemoryPerBlockOptin = 97;
 constexpr int cudaDevAttrMaxSharedMemoryPerMultiprocessor = 81;
 
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 namespace emu {
 // the emulated device: SM count and shared memory limits (an H100's by
@@ -97,6 +97,11 @@ inline int cudaDeviceGetAttribute(int* v, int attr, int) {
        : 0;
     return *v ? cudaSuccess : cudaErrorInvalidValue;
 }
+// stream-ordered memset: the launches before it have run
+inline int cudaMemsetAsync(void* p, int value, size_t n, cudaStream_t = nullptr) {
+    std::memset(p, value, n);
+    return cudaSuccess;
+}
 inline int cudaGetLastError() {
     const int e = emu::error;
     emu::error = cudaSuccess;
@@ -114,22 +119,19 @@ inline int atomicAdd(int* p, int v) {
 inline void __threadfence_block() {
     std::atomic_thread_fence(std::memory_order_seq_cst);
 }
+inline void __threadfence() {
+    std::atomic_thread_fence(std::memory_order_seq_cst);
+}
 inline void __trap() { std::abort(); }
 // a spin-wait's pause: the emulated threads share few cores
 #define SPIN_PAUSE() std::this_thread::yield()
 inline unsigned atomicOr(unsigned* p, unsigned v) {
     return std::atomic_ref<unsigned>(*p).fetch_or(v);
 }
-// the byte-wise and funnel intrinsics of the autocorrelation kernel
+// the funnel shift of the autocorrelation kernel
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
     const unsigned long long v = ((unsigned long long)hi << 32) | lo;
     return (unsigned)(v >> (shift & 31));
-}
-inline unsigned __vcmpeq4(unsigned a, unsigned b) {
-    unsigned r = 0;
-    for (int i = 0; i < 32; i += 8)
-        if (((a >> i) & 0xFFu) == ((b >> i) & 0xFFu)) r |= 0xFFu << i;
-    return r;
 }
 inline unsigned __umulhi(unsigned a, unsigned b) {
     return (unsigned)(((unsigned long long)a * b) >> 32);
@@ -258,6 +260,7 @@ void launch(unsigned grid, unsigned block, size_t smem, cudaStream_t,
                 threadIdx.x = t;
                 blockIdx.x = b;
                 blockDim.x = block;
+                gridDim.x = grid;
                 self = &blk;
                 kernel(args...);
             });
@@ -293,6 +296,7 @@ void launch_cluster(unsigned grid, unsigned block, size_t smem,
                     threadIdx.x = t;
                     blockIdx.x = c * csize + r;
                     blockDim.x = block;
+                    gridDim.x = grid;
                     self = &blocks[r];
                     cluster = &clu;
                     cluster_rank = r;
@@ -389,6 +393,28 @@ inline unsigned __ballot_sync(unsigned, int pred) {
         if (w.buf[i]) r |= 1u << i;
     w.bar.arrive_and_wait();
     return r;
+}
+// the warp's minimum and maximum (the card's are for 32-bit integers)
+namespace emu {
+template <typename T, typename Op>
+inline T reduce_warp(T v, Op op) {
+    emu::Warp& w = emu::warp();
+    const int lane = threadIdx.x & 31;
+    w.buf[lane] = (long long)v;
+    w.bar.arrive_and_wait();
+    T r = (T)w.buf[0];
+    for (int i = 1; i < 32; ++i) r = op(r, (T)w.buf[i]);
+    w.bar.arrive_and_wait();
+    return r;
+}
+}  // namespace emu
+template <typename T>
+inline T __reduce_min_sync(unsigned, T v) {
+    return emu::reduce_warp(v, [](T a, T b) { return b < a ? b : a; });
+}
+template <typename T>
+inline T __reduce_max_sync(unsigned, T v) {
+    return emu::reduce_warp(v, [](T a, T b) { return b > a ? b : a; });
 }
 template <typename T>
 inline T __reduce_add_sync(unsigned, T v) {

@@ -26,8 +26,9 @@ and returns its 128 outputs.  `run_sgd` (sgd.cu's plan and chain, or the
 chain alone on a given plan), `run_minhash_hash` (either route),
 `run_minhash_inter` (tiles of given rows, or the long route),
 `run_ident` (ident.cu's warp or block kernel, by the band) and
-`run_autocorr` (autocorr.cu, its row in shared or device memory by the
-emulated shared memory, with the geometry) launch the entries of sgd.cu,
+`run_autocorr` (autocorr.cu's memset, pack and count kernels, its units
+staged in shared memory or read from device memory by the emulated shared
+memory, with the geometry and the plan) launch the entries of sgd.cu,
 minhash.cu, ident.cu and autocorr.cu on the inputs their wrappers take.  A race between threads shows as a hang, so
 callers run it under a timeout.  The emulated device has an H100's SM
 count and shared memory limits unless `sms`, `smem_block` and `smem_sm`
@@ -320,22 +321,30 @@ int main(int argc, char** argv) {
     auto lens = rd<int32_t>(f, B);
     auto lags = rd<int32_t>(f, G);
     std::fclose(f);
-    std::vector<int32_t> out((size_t)B * G + 1, 7), geo(4, 0);
-    // the rows 4-byte aligned, as a torch allocation is
+    std::vector<int32_t> out((size_t)B * G + 1, 7), geo(8, 0);
+    // the rows 4-byte aligned and the scratch 16-byte aligned, as torch
+    // allocations are; the scratch starts as garbage
     std::vector<uint32_t> words(((size_t)B * Lpad + 3) / 4 + 1);
     std::memcpy(words.data(), rows.data(), (size_t)B * Lpad);
+    const long long sb = autocorr_scratch_bytes(B, Lpad, G);
+    std::vector<int4> scratch((size_t)(sb + 15) / 16 + 1);
+    std::memset(scratch.data(), 0x5a, scratch.size() * 16);
     const int rc = autocorr_launch(
         reinterpret_cast<const uint8_t*>(words.data()), lens.data(),
-        lags.data(), out.data(), B, Lpad, G, nullptr);
+        lags.data(), out.data(), scratch.data(), B, Lpad, G, nullptr);
     autocorr_geometry(B, Lpad, G, geo.data());
+    const int* hdr = reinterpret_cast<const int*>(scratch.data());
+    std::vector<int32_t> plan(16, 0);
+    if (rc == 0 && B > 0 && G > 0)
+        plan.assign(hdr, hdr + hdr[7] + 4 * (size_t)hdr[0]);
     f = std::fopen(argv[2], "wb");
     wr(f, out, (size_t)B * G);
-    wr(f, geo, 4);
+    wr(f, geo, 8);
+    wr(f, plan, plan.size());
     std::fclose(f);
     return rc;
 }
 """
-AUTOCORR_GEOMETRY = ("shared", "blocks", "threads", "smem")
 _MAINS = {"sgd": _SGD_MAIN, "minhash": _MINHASH_MAIN, "ident": _IDENT_MAIN,
           "autocorr": _AUTOCORR_MAIN}
 
@@ -563,12 +572,15 @@ def run_autocorr(exe: str, rows, lens, lags, timeout: float = 120.0,
     """autocorr.cu's autocorr_launch on ops/autocorr.autocorr_counts' CPU
     tensors (rows (B, Lpad) uint8 with Lpad % 4 == 0, lens (B,) and lags
     (G,) int32); returns ((B, G) int32 counts, the launch geometry as a
-    dict: the row staged in shared memory, blocks, threads a block, shared
-    bytes)."""
+    dict (ops/autocorr.GEOMETRY), the plan: ops/autocorr.plan_stats of the
+    scratch's header and unit list)."""
+    from ..ops.autocorr import GEOMETRY, plan_stats
     B, Lpad = rows.shape
     G = lags.numel()
     raw = np.frombuffer(_run_raw(exe, [B, Lpad, G, sms, smem_block,
                                        smem_sm], (rows, lens, lags),
                                  timeout), np.int32)
-    return (torch.from_numpy(raw[:B * G].reshape(B, G).copy()),
-            dict(zip(AUTOCORR_GEOMETRY, raw[B * G:B * G + 4].tolist())))
+    geo = dict(zip(GEOMETRY, raw[B * G:B * G + 8].tolist()))
+    plan = torch.from_numpy(raw[B * G + 8:].copy())
+    return (torch.from_numpy(raw[:B * G].reshape(B, G).copy()), geo,
+            plan_stats(plan))

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the GPU: each kernel (poa_win, poa_round,
 poa_batch, poa_code and poa_stacked at every profiling stage, the four probe
-families of csrc/probes.cu, sgd.cu, minhash.cu's two entries and
-ident.cu) against its plain PyTorch version (exact equality: the POA,
+families of csrc/probes.cu, sgd.cu, minhash.cu's two entries, ident.cu
+and autocorr.cu's pack and count kernels on every route) against its
+plain PyTorch version (exact equality: the POA,
 probe and split outputs are integers, and sgd.cu sums in the plain
 version's order) and each GPU engine's slice end to end
 against the native engine's bytes, and a launch sharded over two
@@ -364,3 +365,23 @@ def test_jax_slice_on_gpu_matches_native_bytes(cuda_device, tmp_path):
     for ext in ("gfa", "maf"):
         assert _sha(tmp_path / f"port.{ext}") == \
             _sha(tmp_path / f"native.{ext}")
+
+
+def test_autocorr_kernels_match_plain_version(cuda_device):
+    """csrc/autocorr.cu on seeded rows of every route (tandem, random and
+    N-run rows; lower case, all N, random bytes, soft-masked; a row with a
+    few escapes) at the CLI's grid plus lags 0, 1, 31, 33, a negative one
+    and one past every row: equal to the plain version."""
+    from smoothxg_tpu_torch.ops import autocorr as ac
+    from smoothxg_tpu_torch.tools import time_autocorr as ta
+    rng = np.random.default_rng(3)
+    few = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 9000)]
+    few[100::40] = rng.integers(0, 256, len(few[100::40]))
+    buf, lens, lags = ta.batch(ta.phase21_rows(12) + ta.escape_rows(8) +
+                               [few])
+    lags = np.concatenate([lags, [0, 1, 31, 33, -3, 50000]]).astype(np.int32)
+    ins = [torch.from_numpy(x).to(cuda_device) for x in (buf, lens, lags)]
+    stats = {}
+    got = ac.autocorr_counts(*ins, stats=stats)
+    assert torch.equal(got, ac.autocorr_counts_reference(*ins))
+    assert all(stats["routes"][r] > 0 for r in ac.ROUTES)
