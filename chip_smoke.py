@@ -137,6 +137,24 @@ result:
      the steal back when nothing was stolen; (b) a forced steal on phase
      3's blocks (max_batch 8, rates set on the instance): blocks stolen,
      every graph equal to the steal-off engine's.
+ 23. sanitizers (smoothxg_tpu_torch/tools/sanitize.py's card part): the
+     harness tools/sanitize_drive.py, which launches every kernel entry of
+     the library at a small size (poa_win local, global and banded;
+     poa_code and poa_stacked with tables in shared and device memory;
+     poa_round and poa_batch ring and tiled, poa_batch's tables in shared
+     and device memory; sgd_plan and the sgd chain; minhash_hash,
+     minhash_inter and their long routes; ident's warp and block kernels;
+     autocorr's four routes, units staged and from device memory; a probe
+     of each family; poa_batch over two streams) and holds each to its
+     plain version, under compute-sanitizer's memcheck, racecheck,
+     synccheck and initcheck at once, each in a process of its own (a
+     line a tool: version, seconds, kernels covered, reports; a tool that
+     does not run on this card says why), and then under the guard
+     allocator (testing/guard_alloc.cu: guard bands around every
+     allocation, poisons 0x00 and 0xff in memory and in shared memory);
+     the expected reports (tools/sanitize.EXPECTED) are printed, and any
+     other report, a guard band written or an entry that disagrees with
+     its plain version fails.
 Every main path (4, 7, 9, 11, the probes' phase 12, 14's prep, 16, 18, 21
 and 22 (a)) runs with all seventeen wrappers' launch counts set to 0 just
 before it and read just after: its own kernels must have launched and no
@@ -2234,6 +2252,26 @@ def steal_phase(torch, dev) -> None:
         f"cells/s a worker")
 
 
+def sanitize_phase() -> None:
+    """Phase 23: tools/sanitize.py's card part, its harness in child
+    processes (the four compute-sanitizer tools at once, then the guard
+    allocator); fails on any report outside tools/sanitize.EXPECTED, a
+    guard band written or an entry unequal to its plain version."""
+    from smoothxg_tpu_torch.tools import sanitize
+    t0 = time.perf_counter()
+    res = sanitize.run_card(echo=say,
+                            log_dir=os.path.join(SMOKE_DIR, "sanitize"))
+    ran = [r["tool"] for r in res["tools"] if r["supported"]]
+    say(f"sanitizers: {time.perf_counter() - t0:.1f} s; compute-sanitizer "
+        f"{res['version']} ({res['path']}) ran {len(ran)} of "
+        f"{len(sanitize.TOOLS)} tools {ran}; the guard allocator "
+        f"{'passed' if res['guard']['ok'] else 'FAILED'}")
+    if not res["ok"]:
+        fail("sanitizers: " + json.dumps(
+            [r for r in res["tools"] + [res["guard"]] if not r.get("ok")])
+            [:3000])
+
+
 def engine_run(gfa: str, out: str, maf: str, engine):
     """The main path through the API with a pre-built engine:
     run_smoothing(config_from_args(<the CLI's flags>), engine=engine)."""
@@ -2286,7 +2324,7 @@ def main() -> None:
         + build_summary(_build.build_log["ptxas"]))
     # the port's host C++ libraries build with g++ at first use; build
     # them here so the main paths' walls are not charged for them
-    for name in ("graphcore", "cpoa", "sgd", "wfa"):
+    for name in _build.HOST_NAMES:
         if _build.host_lib(name) is None:
             fail(f"g++ build of csrc/host/{name}.cpp failed")
     say(f"build: the port's host libraries from csrc/host/ with g++: "
@@ -2451,6 +2489,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     steal_main_path(gfa, out2, maf2)
     steal_phase(torch, dev)
+    torch.cuda.empty_cache()
+
+    # phase 23: every kernel entry under compute-sanitizer and the guard
+    # allocator
+    sanitize_phase()
 
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "smoothxg_tpu."))

@@ -59,6 +59,8 @@
 
 #include <cstdint>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int INF = 1 << 28;
@@ -465,12 +467,8 @@ extern "C" int ident_launch(const uint8_t* a_all, const long long* aoff,
         default: break;
     }
     const int smem = smem_bytes(band);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = (cudaError_t)cudaFuncSetAttribute(
-            ident_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            smem);
-        if (err != cudaSuccess) return err;
-    }
+    const cudaError_t err = opt_in_smem(ident_block_kernel, smem);
+    if (err != cudaSuccess) return err;
     ident_block_kernel<<<P, band, smem, stream>>>(a_all, aoff, la, b_all,
                                                   boff, lb, out, X, O, E);
     return cudaGetLastError();

@@ -76,6 +76,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr unsigned SENTINEL = 0xFFFFFFFFu;
@@ -465,12 +467,8 @@ extern "C" int minhash_hash_launch(const int8_t* codes, const int* lens,
     }
     const long long smem = 4LL * nmax + L;
     if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-        const cudaError_t err = (cudaError_t)cudaFuncSetAttribute(
-            minhash_hash_kernel<false>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return err;
-    }
+    const cudaError_t err = opt_in_smem(minhash_hash_kernel<false>, smem);
+    if (err != cudaSuccess) return err;
     minhash_hash_kernel<false><<<B, threads, (size_t)smem, stream>>>(
         codes, lens, hs, counts, L, k);
     return cudaGetLastError();
@@ -505,12 +503,8 @@ extern "C" int minhash_inter_launch(const int* hs, const int* counts,
     const long long T = (B + R - 1) / R;
     const long long tiles = T * (T + 1) / 2;
     const int vec = (H & 3) == 0 && ((uintptr_t)hs & 15) == 0;
-    if (smem > 48 * 1024) {
-        const cudaError_t err = (cudaError_t)cudaFuncSetAttribute(
-            minhash_inter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (err != cudaSuccess) return err;
-    }
+    const cudaError_t err = opt_in_smem(minhash_inter_kernel, smem);
+    if (err != cudaSuccess) return err;
     minhash_inter_kernel<<<(unsigned)tiles, MAX_THREADS, (size_t)smem,
                            stream>>>(hs, counts, out, B, H, R, wpr, vec);
     return cudaGetLastError();

@@ -78,6 +78,8 @@
 #include <stdint.h>
 #include <limits.h>
 
+#include "smem.cuh"
+
 // Timing-only switches (smoothxg_tpu_torch/tools/batch_cuts.py), 0 as
 // built: bit 1 no traceback, bit 2 no block-wide F scan (each thread's own
 // columns only) — their outputs are invalid by design; bit 4 the tiled
@@ -841,12 +843,8 @@ struct BatchGeometry {
 
 template <bool R, bool T>
 cudaError_t configure(const BatchGeometry& g, int* per_sm) {
-    if (g.smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            poa_batch_kernel<R, T>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
-        if (err != cudaSuccess) return err;
-    }
+    const cudaError_t err = opt_in_smem(poa_batch_kernel<R, T>, g.smem);
+    if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         per_sm, poa_batch_kernel<R, T>, g.threads, g.smem);
 }

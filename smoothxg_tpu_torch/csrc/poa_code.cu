@@ -62,6 +62,7 @@
 
 #include "poa_common.cuh"
 #include "poa_graph.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -435,12 +436,8 @@ cudaError_t launch_stage(const Geometry& geo, const void* seqs,
                          void* paths, void* scratch, int RW, int LW, int VW,
                          int pcap, int LS, int local, int banded,
                          cudaStream_t stream) {
-    if (geo.smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            poa_code_kernel<S, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            geo.smem);
-        if (err != cudaSuccess) return err;
-    }
+    const cudaError_t err = opt_in_smem(poa_code_kernel<S, T>, geo.smem);
+    if (err != cudaSuccess) return err;
     poa_code_kernel<S, T><<<geo.grid, NT, geo.smem, stream>>>(
         (const int8_t*)seqs, (const int32_t*)slen, (const int32_t*)nseq,
         (const int32_t*)params, (int32_t*)meta, (int32_t*)exp_,

@@ -84,6 +84,8 @@
 #include <stdint.h>
 #include <limits.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr int32_t NEG = -(1 << 30);   // score floor (csrc/host/cpoa.cpp)
@@ -717,12 +719,8 @@ struct RoundGeometry {
 
 template <bool R, bool T>
 cudaError_t configure(const RoundGeometry& g, int* per_sm) {
-    if (g.smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            poa_round_kernel<R, T>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
-        if (err != cudaSuccess) return err;
-    }
+    const cudaError_t err = opt_in_smem(poa_round_kernel<R, T>, g.smem);
+    if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         per_sm, poa_round_kernel<R, T>, g.threads, g.smem);
 }

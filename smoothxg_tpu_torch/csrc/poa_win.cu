@@ -58,6 +58,7 @@
 
 #include "poa_common.cuh"
 #include "poa_graph.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -573,12 +574,8 @@ cudaError_t launch_win(const Geometry& geo, const void* seqs,
                        void* meta, void* exp_, void* paths, void* scratch,
                        int RW, int LW, int VW, int W, int pcap, int LS,
                        int local, cudaStream_t stream) {
-    if (geo.smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            poa_win_kernel<T, BD>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
-        if (err != cudaSuccess) return err;
-    }
+    const cudaError_t err = opt_in_smem(poa_win_kernel<T, BD>, geo.smem);
+    if (err != cudaSuccess) return err;
     poa_win_kernel<T, BD><<<geo.grid, NT, geo.smem, stream>>>(
         (const int8_t*)seqs, (const int32_t*)slen, (const int32_t*)nseq,
         (const int32_t*)params, (int32_t*)meta, (int32_t*)exp_,

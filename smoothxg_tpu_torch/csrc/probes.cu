@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace {
 
 constexpr unsigned FULLMASK = 0xffffffffu;
@@ -381,11 +383,7 @@ probe_step_warp_kernel(int n, const int32_t* __restrict__ plane,
 }
 
 // ---- launch tables ----
-int opt_in(const void* fn, size_t smem) {
-    if (smem <= 48 * 1024) return 0;
-    return (int)cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
+int opt_in(const void* fn, size_t smem) { return (int)opt_in_smem(fn, smem); }
 
 template <int C, bool SH>
 int launch_scalar(int n, int sz, int32_t* table, int32_t* out, size_t smem,

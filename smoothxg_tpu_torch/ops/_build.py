@@ -13,7 +13,9 @@ and flags.
   seconds.
 * Host libraries: each csrc/host/<name>.cpp compiles with g++ into
   lib<name>.so (graphcore, cpoa, sgd, wfa), with the flags the JAX
-  package's native/Makefile uses, so both packages compute the same bytes.
+  package's native/Makefile uses, so both packages compute the same bytes;
+  build_sanitized_host builds them under AddressSanitizer and UBSan, and
+  SMOOTHXG_TORCH_NATIVE_DIR points the bindings at such builds.
 """
 from __future__ import annotations
 
@@ -101,53 +103,118 @@ def build() -> str:
 
 
 HOST_CSRC = os.path.join(CSRC, "host")
+HOST_NAMES = ("graphcore", "cpoa", "sgd", "wfa")
 HOST_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
               "-shared"]
+# AddressSanitizer and UBSan, as the JAX package's native/Makefile builds
+# its native/asan/ libraries; the CUDA emulation (testing/cuda_emu.py)
+# builds a kernel source with them too
+SANITIZE_FLAGS = ["-g", "-fsanitize=address,undefined",
+                  "-fno-sanitize-recover=all", "-fno-omit-frame-pointer"]
+HOST_SANITIZE_FLAGS = ["-O1", *SANITIZE_FLAGS, "-march=native", "-fPIC",
+                       "-std=c++17", "-Wall", "-shared"]
 _HOST_EXTRA = {"sgd": ["-pthread"]}
+# a directory of lib<name>.so builds that every host library loads from in
+# place of _build/ (the counterpart of the JAX package's
+# SMOOTHXG_NATIVE_DIR, under a name of its own, since both packages load
+# in one test process)
+NATIVE_DIR_ENV = "SMOOTHXG_TORCH_NATIVE_DIR"
 # seconds of each host library's last g++ build in this process
 host_build_log: dict = {}
 
 
-def _host_cmd(name: str) -> list[str]:
-    return [os.environ.get("CXX", "g++"), *HOST_FLAGS,
+def _host_cmd(name: str, flags=HOST_FLAGS) -> list[str]:
+    return [os.environ.get("CXX", "g++"), *flags,
             *_HOST_EXTRA.get(name, [])]
 
 
-def host_lib_path(name: str) -> str:
-    src = os.path.join(HOST_CSRC, f"{name}.cpp")
-    h = hashlib.sha256(" ".join(_host_cmd(name)).encode())
-    with open(src, "rb") as f:
+def _host_hash(name: str, flags=HOST_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(_host_cmd(name, flags)).encode())
+    with open(os.path.join(HOST_CSRC, f"{name}.cpp"), "rb") as f:
         h.update(f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    return h.hexdigest()[:16]
+
+
+def host_lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}_{_host_hash(name)}.so")
+
+
+def _compile_host(name: str, flags, path: str) -> bool:
+    """g++ csrc/host/<name>.cpp into `path` (through a temporary file
+    beside it); False when the build fails."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(
+            [*_host_cmd(name, flags), "-o", tmp,
+             os.path.join(HOST_CSRC, f"{name}.cpp")],
+            capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            return False
+        os.replace(tmp, path)
+    except (OSError, subprocess.SubprocessError):
+        return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    host_build_log[name] = time.perf_counter() - t0
+    return True
 
 
 def host_lib(name: str) -> str | None:
     """Path of csrc/host/<name>.cpp built as a shared library, compiling
     it unless a build of these exact sources exists; None when the build
     fails (the bindings then take their Python route, as the JAX
-    package's do when native/ does not build)."""
-    path = host_lib_path(name)
-    if os.path.exists(path):
+    package's do when native/ does not build).
+
+    Where the environment's SMOOTHXG_TORCH_NATIVE_DIR names a directory,
+    the library is that directory's lib<name>.so (the sanitized builds of
+    build_sanitized_host), and a directory without it raises: the run
+    must not quietly take the plain build.  It is an environment variable,
+    as the reference's hook is, since that is the one setting that also
+    reaches the spawn-context workers of utils/procpool.py."""
+    hook = os.environ.get(NATIVE_DIR_ENV)
+    if hook:
+        path = os.path.join(hook, f"lib{name}.so")
+        if not os.path.isfile(path):
+            raise RuntimeError(f"{NATIVE_DIR_ENV}={hook} holds no "
+                               f"lib{name}.so")
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        res = subprocess.run(
-            [*_host_cmd(name), "-o", tmp,
-             os.path.join(HOST_CSRC, f"{name}.cpp")],
-            capture_output=True, text=True, timeout=300)
-        if res.returncode != 0:
-            return None
-        os.replace(tmp, path)
-    except (OSError, subprocess.SubprocessError):
-        return None
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    host_build_log[name] = time.perf_counter() - t0
-    return path
+    path = host_lib_path(name)
+    if os.path.exists(path) or _compile_host(name, HOST_FLAGS, path):
+        return path
+    return None
+
+
+def sanitized_host_dir() -> str:
+    """The directory build_sanitized_host builds into: _build/asan_<hash of
+    the four sources and the sanitizer flags>/."""
+    h = hashlib.sha256("".join(_host_hash(n, HOST_SANITIZE_FLAGS)
+                               for n in HOST_NAMES).encode())
+    return os.path.join(BUILD_DIR, f"asan_{h.hexdigest()[:16]}")
+
+
+def build_sanitized_host() -> str:
+    """Build csrc/host/{graphcore,cpoa,sgd,wfa}.cpp under AddressSanitizer
+    and UBSan (HOST_SANITIZE_FLAGS, the reference's native/Makefile asan
+    flags) as lib<name>.so in sanitized_host_dir(), unless built already;
+    returns the directory, to be named by SMOOTHXG_TORCH_NATIVE_DIR in a
+    process that preloads the sanitizer runtimes (tools/sanitize.py)."""
+    from concurrent.futures import ThreadPoolExecutor
+    d = sanitized_host_dir()
+    todo = [n for n in HOST_NAMES
+            if not os.path.exists(os.path.join(d, f"lib{n}.so"))]
+    with ThreadPoolExecutor(max(len(todo), 1)) as pool:
+        built = dict(zip(todo, pool.map(
+            lambda n: _compile_host(n, HOST_SANITIZE_FLAGS,
+                                    os.path.join(d, f"lib{n}.so")), todo)))
+    failed = [n for n, ok in built.items() if not ok]
+    if failed:
+        raise RuntimeError("sanitized g++ build of csrc/host/"
+                           f"{', '.join(failed)} failed")
+    return d
 
 
 def loaded() -> bool:

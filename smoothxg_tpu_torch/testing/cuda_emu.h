@@ -65,9 +65,13 @@ inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 namespace emu {
 // the emulated device: SM count and shared memory limits (an H100's by
 // default; the test driver sets them), the dynamic shared memory the last
-// cudaFuncSetAttribute opted in to, and the pending launch error
+// cudaFuncSetAttribute opted in to (0: none), the static __shared__ bytes
+// taken for every kernel (cudaFuncGetAttributes reports them: a launch
+// whose dynamic bytes pass 48 KB with them needs the opt-in, as on the
+// card), and the pending launch error
 inline int sms = 132, smem_block = 232448, smem_sm = 233472;
-inline int opt_in = 48 * 1024;
+inline int opt_in = 0;
+inline int static_smem = 512;
 inline int error = cudaSuccess;
 }  // namespace emu
 
@@ -77,6 +81,14 @@ inline int cudaFuncSetAttribute(F, int attr, int value) {
         if (value > emu::smem_block) return cudaErrorInvalidValue;
         emu::opt_in = value;
     }
+    return cudaSuccess;
+}
+struct cudaFuncAttributes {
+    size_t sharedSizeBytes;
+};
+template <typename F>
+inline int cudaFuncGetAttributes(cudaFuncAttributes* attr, F) {
+    attr->sharedSizeBytes = (size_t)emu::static_smem;
     return cudaSuccess;
 }
 // blocks of `block` threads and `smem` dynamic bytes an SM holds, by its
@@ -216,7 +228,6 @@ struct Cluster {
 inline thread_local Block* self = nullptr;
 inline thread_local Cluster* cluster = nullptr;
 inline thread_local unsigned cluster_rank = 0;
-inline std::vector<int8_t> dyn_smem;
 
 inline Warp& warp() { return *self->warps[threadIdx.x >> 5]; }
 inline void* block_smem() { return self->smem; }
@@ -234,7 +245,8 @@ inline T exchange(T v, int src) {
 
 inline bool refused(unsigned block, size_t smem) {
     if (smem > (size_t)smem_block ||
-        (smem > 48 * 1024 && smem > (size_t)opt_in) || block > 1024) {
+        (smem + static_smem > 48 * 1024 && smem > (size_t)opt_in) ||
+        block > 1024) {
         error = cudaErrorInvalidValue;
         return true;
     }
@@ -243,17 +255,25 @@ inline bool refused(unsigned block, size_t smem) {
 
 // run `kernel(args...)` over `grid` thread blocks of `block` threads, one
 // block after another; a launch the card would refuse (too much dynamic
-// shared memory, or more than 48 KB without opting in) does not run and
+// shared memory, or more than 48 KB with the static bytes without opting
+// in) does not run and
 // leaves an error for cudaGetLastError.  Shared memory starts as garbage,
-// as on the card.
+// as on the card, and is a heap block of exactly the launch's bytes, so
+// that AddressSanitizer reports a read or write past it.
+inline std::unique_ptr<int8_t[]> shared_bytes(size_t smem) {
+    std::unique_ptr<int8_t[]> mem(new int8_t[smem]);
+    std::memset(mem.get(), 0x5a, smem);
+    return mem;
+}
+
 template <typename K, typename... A>
 void launch(unsigned grid, unsigned block, size_t smem, cudaStream_t,
             K kernel, A... args) {
     if (refused(block, smem)) return;
-    dyn_smem.assign(smem + 16, 0x5a);
+    const auto mem = shared_bytes(smem);
     Block blk;
     for (unsigned b = 0; b < grid; ++b) {
-        blk.reset(block, dyn_smem.data());
+        blk.reset(block, mem.get());
         std::vector<std::thread> ts;
         for (unsigned t = 0; t < block; ++t)
             ts.emplace_back([=, &blk] {
@@ -281,11 +301,12 @@ void launch_cluster(unsigned grid, unsigned block, size_t smem,
         return;
     }
     for (unsigned c = 0; c < grid / csize; ++c) {
-        std::vector<std::vector<int8_t>> mem(
-            csize, std::vector<int8_t>(smem + 16, 0x5a));
+        std::vector<std::unique_ptr<int8_t[]>> mem(csize);
         std::vector<Block> blocks(csize);
-        for (unsigned r = 0; r < csize; ++r)
-            blocks[r].reset(block, mem[r].data());
+        for (unsigned r = 0; r < csize; ++r) {
+            mem[r] = shared_bytes(smem);
+            blocks[r].reset(block, mem[r].get());
+        }
         Cluster clu;
         clu.bar = std::make_unique<std::barrier<>>(csize * block);
         clu.blocks = &blocks;

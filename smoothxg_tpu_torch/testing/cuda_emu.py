@@ -43,8 +43,14 @@ import subprocess
 import numpy as np
 import torch
 
+from ..ops._build import SANITIZE_FLAGS
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
+# build() sanitizes by default where this variable is 1
+SANITIZE_ENV = "SMOOTHXG_TORCH_EMU_SANITIZE"
+# the head of a failed launch's standard error kept in its message
+_STDERR_KEEP = 16000
 
 _MAIN = r"""
 #include <cstdio>
@@ -357,17 +363,28 @@ def _rewrite(src: str) -> str:
     return src
 
 
-def build(name: str, workdir: str, defines=()) -> str:
-    """Compile csrc/<name>.cu with the emulation, each of `defines`
-    ("NAME=value") as a -D switch; returns the executable."""
+def build(name: str, workdir: str, defines=(), sanitize=None,
+          source: str | None = None) -> str:
+    """Compile csrc/<name>.cu (or `source`, a kernel file that carries its
+    own main) with the emulation, each of `defines` ("NAME=value") as a -D
+    switch; returns the executable.  With `sanitize` (by default: the
+    environment's SMOOTHXG_TORCH_EMU_SANITIZE is 1) it is built under
+    AddressSanitizer and UBSan (ops/_build.SANITIZE_FLAGS), so an access
+    past a buffer, the emulated shared memory included (exactly the
+    launch's bytes), a leak or undefined behaviour ends the launch with
+    the sanitizer's report."""
+    if sanitize is None:
+        sanitize = os.environ.get(SANITIZE_ENV) == "1"
     os.makedirs(workdir, exist_ok=True)
     for header in ("cuda_runtime.h", "cuda_pipeline.h",
                    "cooperative_groups.h"):
         with open(os.path.join(workdir, header), "w") as f:
             f.write(f'#include "{os.path.join(_HERE, "cuda_emu.h")}"\n')
-    with open(os.path.join(CSRC, f"{name}.cu")) as f:
+    with open(source or os.path.join(CSRC, f"{name}.cu")) as f:
         src = _rewrite(f.read())
-    if name in _MAINS:
+    if source:
+        main = ""
+    elif name in _MAINS:
         main = _MAINS[name]
     elif name == "probes":
         main = _PROBE_MAIN
@@ -387,12 +404,25 @@ def build(name: str, workdir: str, defines=()) -> str:
     with open(cpp, "w") as f:
         f.write(src + main)
     exe = os.path.join(workdir, f"{name}_emu")
-    subprocess.run([os.environ.get("CXX", "g++"), "-std=c++20", "-O1",
-                    "-fno-strict-aliasing", "-ffp-contract=off", "-pthread", "-w", "-I", workdir,
-                    "-I", CSRC, *(f"-D{d}" for d in defines), "-o", exe,
-                    cpp], check=True,
-                   capture_output=True, text=True, timeout=300)
+    # sanitized at -O0: it builds in a seventh of -O1's time, and no
+    # access is optimised away from the checks
+    subprocess.run([os.environ.get("CXX", "g++"), "-std=c++20",
+                    *(["-O0", *SANITIZE_FLAGS] if sanitize else ["-O1"]),
+                    "-fno-strict-aliasing", "-ffp-contract=off", "-pthread",
+                    "-w", "-I", workdir, "-I", CSRC,
+                    *(f"-D{d}" for d in defines), "-o", exe, cpp],
+                   check=True, capture_output=True, text=True, timeout=300)
     return exe
+
+
+def build_many(names, workdir: str, sanitize=None) -> dict:
+    """build() of each of `names` into workdir/<name>, several g++
+    processes at once; {name: executable}."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(4) as pool:
+        exes = {n: pool.submit(build, n, os.path.join(workdir, n),
+                               sanitize=sanitize) for n in names}
+        return {n: f.result() for n, f in exes.items()}
 
 
 def _launch(exe: str, header: list, inputs, timeout: float) -> np.ndarray:
@@ -437,19 +467,8 @@ def run_round(exe: str, nv, slen, par, base, sink, preds, seq,
     launch geometry as a dict)."""
     B, VW = base.shape
     LS, P = seq.shape[1], preds.shape[2]
-    d = os.path.dirname(exe)
-    inp, out = os.path.join(d, "in.bin"), os.path.join(d, "out.bin")
-    with open(inp, "wb") as f:
-        f.write(np.array([B, VW, LS, P, int(local), sms, smem_block,
-                          smem_sm], np.int32).tobytes())
-        for t in (nv, slen, par, base, sink, preds, seq):
-            f.write(t.contiguous().numpy().tobytes())
-    res = subprocess.run([exe, inp, out], capture_output=True, text=True,
-                         timeout=timeout)
-    if res.returncode != 0:
-        raise RuntimeError(f"emulated launch failed: rc {res.returncode} "
-                           f"{res.stderr[-400:]}")
-    raw = open(out, "rb").read()
+    raw = _run_raw(exe, [B, VW, LS, P, int(local), sms, smem_block, smem_sm],
+                   (nv, slen, par, base, sink, preds, seq), timeout)
     nc = B * (VW + LS + 1) * 8
     codes = np.frombuffer(raw[:nc], np.int64).reshape(B, VW + LS + 1)
     rest = np.frombuffer(raw[nc:], np.int32)
@@ -501,6 +520,26 @@ def run_probe(exe: str, family: str, args: tuple, n: int, sz: int = 1,
     return torch.from_numpy(raw.copy())
 
 
+class LaunchError(RuntimeError):
+    """An emulated launch that exited non-zero; the message carries the
+    child's standard error, so a sanitizer's report is the failure's."""
+
+
+def run_exe(exe: str, args, timeout: float) -> None:
+    """Run an emulation executable with `args`; a nonzero exit raises
+    LaunchError with the child's standard error."""
+    # a sanitized build checks for leaks too: unlike the reference's lane,
+    # which preloads the runtime into Python, nothing else runs here
+    env = dict(os.environ, ASAN_OPTIONS="detect_leaks=1",
+               UBSAN_OPTIONS="print_stacktrace=1")
+    res = subprocess.run([exe, *args], capture_output=True, text=True,
+                         timeout=timeout, env=env)
+    if res.returncode != 0:
+        raise LaunchError(f"emulated launch failed: rc {res.returncode} "
+                          f"({os.path.basename(exe)})\n"
+                          f"{res.stderr[:_STDERR_KEEP]}")
+
+
 def _run_raw(exe: str, header: list, inputs, timeout: float) -> bytes:
     d = os.path.dirname(exe)
     inp, out = os.path.join(d, "in.bin"), os.path.join(d, "out.bin")
@@ -508,11 +547,7 @@ def _run_raw(exe: str, header: list, inputs, timeout: float) -> bytes:
         f.write(np.array(header, np.int32).tobytes())
         for t in inputs:
             f.write(t.contiguous().numpy().tobytes())
-    res = subprocess.run([exe, inp, out], capture_output=True, text=True,
-                         timeout=timeout)
-    if res.returncode != 0:
-        raise RuntimeError(f"emulated launch failed: rc {res.returncode} "
-                           f"{res.stderr[-400:]}")
+    run_exe(exe, [inp, out], timeout)
     with open(out, "rb") as f:
         return f.read()
 

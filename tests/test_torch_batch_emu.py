@@ -17,6 +17,8 @@ route the launch geometry takes:
   * V = 0 and L = 0 tasks beside normal ones;
   * tracebacks whose runs of diagonal moves break on a branch row, an E
     step and an F step.
+A launch a few bytes under 48 KB of dynamic shared memory, which must
+opt in for the kernel's static buffers.
 Also the timing switches of tools/batch_cuts.py: each still names its
 `#if` in the source, and the two that keep the outputs (the tiled route
 for every row, the tables in device memory) still equal the plain
@@ -235,6 +237,21 @@ def test_traceback_runs_break_on_branch_e_and_f_steps(exe, local):
     assert any(r == -1 and c >= 0 for r, c in mv)            # F steps
     rows = [r for r, c in mv if r >= 1 and c >= 0]
     assert any(a - b > 1 for a, b in zip(rows, rows[1:]))    # a branch
+
+
+def test_launch_in_the_last_bytes_under_48_kb(exe):
+    """48,960 bytes of dynamic shared memory: under 48 KB, but not with
+    the kernel's own __shared__ buffers, so the launch must opt in to
+    them (csrc/smem.cuh).  Without the opt-in the card refused this launch
+    (an invalid argument, found by tools/sanitize_drive.py); the emulation
+    counts 512 static bytes for every kernel."""
+    rng = np.random.default_rng(20261022)
+    p = poa_host.POAParams(local=True)
+    tasks = [make_round_task(rng, 150 + 100 * i, 3, 0.03, p)
+             for i in range(3)] + [make_fan_in_task(rng, 12, 100, p)]
+    ins, _ = pack_tasks(tasks)
+    _, geo = run(exe, ins, True)
+    assert 48 * 1024 - 512 < geo["smem"] <= 48 * 1024
 
 
 def test_batch_cuts_name_their_switches():

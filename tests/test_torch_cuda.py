@@ -199,6 +199,27 @@ def test_batch_kernel_matches_plain_version(cuda_device, local):
         assert torch.equal(g.cpu(), w)
 
 
+def test_batch_kernel_in_the_last_bytes_under_48_kb(cuda_device):
+    """Tasks whose launch takes 48,960 bytes of dynamic shared memory,
+    under 48 KB but not with the kernel's static buffers: the launch opts
+    in (csrc/smem.cuh) and equals the plain version, whole and sharded
+    over two streams (each shard's launch the same size)."""
+    rng = np.random.default_rng(20261022)
+    p = POAParams(local=True)
+    tasks = [make_round_task(rng, 150 + 100 * i, 3, 0.03, p)
+             for i in range(3)] + [make_fan_in_task(rng, 12, 100, p)]
+    ins, _ = pb.pack_tasks(tasks)
+    geo = pb.geometry(len(tasks), ins[0].shape[0], ins[2].shape[1],
+                      ins[1].shape[2])
+    assert 48 * 1024 - 512 < geo["smem"] <= 48 * 1024 and geo["per_sm"] > 0
+    want = pb.poa_batch_reference(*ins, True)
+    got = pb.poa_batch(*(x.to(cuda_device) for x in ins), True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for g, s, w in zip(got, sharded_poa_round([dev, dev], *ins, local=True),
+                       want):
+        assert torch.equal(g.cpu(), w) and torch.equal(s.cpu(), w)
+
+
 def test_round_kernel_past_the_pallas_packing(cuda_device):
     """A query longer than 2^15 (read from global memory, not shared) that
     ends in the graph's sequence: 64-bit codes past the Pallas packing."""
@@ -376,7 +397,9 @@ def test_autocorr_kernels_match_plain_version(cuda_device):
     from smoothxg_tpu_torch.tools import time_autocorr as ta
     rng = np.random.default_rng(3)
     few = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 9000)]
-    few[100::40] = rng.integers(0, 256, len(few[100::40]))
+    # an escape every 400 positions: 1 word in 12.5 holds one, below the
+    # byte route's 3 in 10
+    few[100::400] = rng.integers(0, 256, len(few[100::400]))
     buf, lens, lags = ta.batch(ta.phase21_rows(12) + ta.escape_rows(8) +
                                [few])
     lags = np.concatenate([lags, [0, 1, 31, 33, -3, 50000]]).astype(np.int32)
