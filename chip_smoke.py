@@ -155,10 +155,27 @@ result:
      the expected reports (tools/sanitize.EXPECTED) are printed, and any
      other report, a guard band written or an entry that disagrees with
      its plain version fails.
-Every main path (4, 7, 9, 11, the probes' phase 12, 14's prep, 16, 18, 21
-and 22 (a)) runs with all seventeen wrappers' launch counts set to 0 just
-before it and read just after: its own kernels must have launched and no
-other.  Then the
+ 24. deep blocks (pggb passes its haplotype count as -r; HPRC's year-1
+     graph has 90): (a) blocks of 64 and 96 sequences of ~100 bases
+     (make_block's and make_population_block's, seeded) through poa_win,
+     poa_code and poa_stacked at the bulk tier, each equal to its plain
+     version (run meanwhile in a pool of worker processes) and every
+     unflagged block to the native engine; the flags by kernel, with the
+     native graph's V and in-degree, and poa_win's flags at the TPU's 4
+     predecessor slots; (b) each kernel's time on one block of 16, 64 and
+     96 sequences of ~1 kb (tools/time_chase.deep_block), the three
+     kernels' outputs equal; (c) the fused CLI on the seeded 90 x 80 kb
+     pangenome with -r 90 -j 5k -e 5k -l 700,900,1100 -t 1: >= 90% of the
+     blocks on the kernel, the blocks past 48 sequences counted by where
+     they ran, the engine, rehydrate and finalize seconds, and GFA and
+     MAF sha256 equal to the JAX package's CLI with --engine native on
+     the same input (a subprocess started when the phase starts); (d) the
+     same input at -t 4 -l 700 in one rank (the finalize pool): exit 0,
+     >= 90% of the blocks on the kernel; the phase's seconds.
+Every main path (4, 7, 9, 11, the probes' phase 12, 14's prep, 16, 18, 21,
+22 (a) and 24 (c), (d)) runs with all seventeen wrappers' launch counts set
+to 0 just before it and read just after: its own kernels must have
+launched and no other.  Then the
 kernels' JSON line, the nvidia-smi line and the result line.  No module
 of jax or of the JAX package may be loaded in this process.
 """
@@ -753,21 +770,33 @@ def chase_phase(torch, dev, clock_mhz, name: str, timing: dict):
             "library_ms": None}
 
 
-def block_main_path(tag: str, own: str, run, clock_mhz) -> int:
-    """Phases 4, 9 and 11: one run of the block engine's main path through
-    `run` (returns (exit code, engine)), counted by `drive`; a spy keeps
-    each block's sequences and final paths for the DP work of the launches
-    (read after the wall is taken).  Returns the kernel's launches."""
+def block_main_path(tag: str, own: str, run, clock_mhz,
+                    depth: int | None = None) -> int:
+    """Phases 4, 9, 11 and 24: one run of the block engine's main path
+    through `run` (returns (exit code, engine)), counted by `drive`; a spy
+    on the engine's iterator keeps each block's sequences and final paths
+    for the DP work of the launches (read after the wall is taken) and
+    where it ran, and a spy on its launches each launch's geometry and
+    each launched block's tier.  With `depth`, the blocks of more
+    sequences than that are counted by where they ran (the kernel and its
+    tier, the native engine after a launch (redone), the native engine
+    otherwise: no tier, or stolen), with their share of the DP cells (L0 x
+    L summed over the rounds), beside the pipeline's engine, rehydrate and
+    finalize seconds.  Returns the kernel's launches."""
     from smoothxg_tpu_torch.ops.poa_engine import TorchPOAEngine
     from smoothxg_tpu_torch.ops.poa_win import stride_for
-    seen = []
-    batch = TorchPOAEngine.poa_block_batch
+    seen = []                 # (sequences, paths, local, kind, tier)
+    tiers: dict = {}          # id(sequences) -> the tier it launched on
+    it = TorchPOAEngine.poa_block_batch_iter
 
-    def spy(self, blocks):
-        graphs = batch(self, blocks)
-        seen.extend((b[0], g.seq_paths, b[2].local)
-                    for b, g in zip(blocks, graphs))
-        return graphs
+    def it_spy(self, blocks):
+        tiers.clear()         # this call's launches
+        for i, kind, payload in it(self, blocks):
+            sq = blocks[i][0]
+            seen.append((sq, payload[3] if kind == "raw" else
+                         payload.seq_paths, blocks[i][2].local, kind,
+                         tiers.get(id(sq))))
+            yield i, kind, payload
 
     # each launch's geometry, counted by kind
     geos: dict = {}
@@ -775,6 +804,8 @@ def block_main_path(tag: str, own: str, run, clock_mhz) -> int:
 
     def launch_spy(self, blocks, chunk, ti, local, banded):
         out = launch(self, blocks, chunk, ti, local, banded)
+        for i in chunk:
+            tiers[id(blocks[i][0])] = ti
         VW, LW, W = self.tiers[ti]
         line = geometry_line(own, len(chunk),
                              self._kernel(VW, LW, W, local, banded)[1],
@@ -782,7 +813,7 @@ def block_main_path(tag: str, own: str, run, clock_mhz) -> int:
         geos[line] = geos.get(line, 0) + 1
         return out
 
-    TorchPOAEngine.poa_block_batch = spy
+    TorchPOAEngine.poa_block_batch_iter = it_spy
     TorchPOAEngine._launch = launch_spy
     log = Tee(sys.stderr)
     t0 = time.perf_counter()
@@ -790,14 +821,15 @@ def block_main_path(tag: str, own: str, run, clock_mhz) -> int:
         with contextlib.redirect_stderr(log):
             (rc, engine), launches = drive(run, own)
     finally:
-        TorchPOAEngine.poa_block_batch = batch
+        TorchPOAEngine.poa_block_batch_iter = it
         TorchPOAEngine._launch = launch
     wall = time.perf_counter() - t0
     if rc != 0:
         fail(f"{tag} exited {rc}")
     st = engine.stats()
-    total = st["device_blocks"] + st["fallbacks"] + st["redo"]
-    work = [(*win_dp_work(sq, pth), local) for sq, pth, local in seen]
+    total = st["device_blocks"] + st["fallbacks"] + st["redo"] + \
+        st["stolen"]
+    work = [(*win_dp_work(sq, pth), local) for sq, pth, local, _, _ in seen]
     cells, pcells = (sum(w[i] for w in work) for i in (0, 1))
     bound = int32_bound_ms(sum(fill_ops(*w) for w in work), clock_mhz)
     say(f"{tag}: {wall:.2f} s wall, {total} blocks, "
@@ -806,6 +838,9 @@ def block_main_path(tag: str, own: str, run, clock_mhz) -> int:
         f"stats {json.dumps(st)}; {own} launches {launches}; DP work of "
         f"its {len(seen)} blocks {cells} cells, {pcells} extra pred cells, "
         f"bound {bound:.3f} ms")
+    if depth is not None:
+        say(f"{tag} by depth: " + depth_line(seen, depth, engine.tiers)
+            + "; " + "; ".join(smooth_times(log.getvalue())))
     if geos:
         say(f"{tag} launch geometry: " + "; ".join(
             f"{n} x [{line}]" for line, n in geos.items()))
@@ -813,6 +848,41 @@ def block_main_path(tag: str, own: str, run, clock_mhz) -> int:
         fail(f"{tag}: only {st['device_blocks']}/{total} blocks ran on "
              f"the GPU")
     return launches
+
+
+def depth_line(seen, depth: int, tiers) -> str:
+    """Where the blocks of more than `depth` sequences ran, of the spy's
+    (sequences, paths, local, kind, tier) records, and their DP cells."""
+    import collections
+    import statistics
+
+    def cells(sq):
+        return sum(len(sq[0]) * len(s) for s in sq[1:])
+
+    deep = [r for r in seen if len(r[0]) > depth]
+    on = collections.Counter(
+        "V{}xL{}".format(*tiers[r[4]][:2]) for r in deep if r[3] == "raw")
+    redone = sum(r[3] == "graph" and r[4] is not None for r in deep)
+    native = sum(r[3] == "graph" and r[4] is None for r in deep)
+    all_cells = sum(cells(r[0]) for r in seen) or 1
+    dev_cells = sum(cells(r[0]) for r in seen if r[3] == "raw")
+    depths = [len(r[0]) for r in deep] or [0]
+    deep_cells = sum(cells(r[0]) for r in deep)
+    return (f"{len(deep)} of {len(seen)} blocks past {depth} sequences "
+            f"(depth {min(depths)}-{max(depths)}, median "
+            f"{statistics.median(depths)}, {deep_cells / all_cells:.3f} of "
+            f"the DP cells): "
+            f"{sum(on.values())} on the kernel {dict(on)}, {redone} on "
+            f"the native engine after a launch (redone), {native} on the "
+            f"native engine without one (no tier, or stolen); the kernel ran "
+            f"{dev_cells / all_cells:.3f} of all blocks' DP cells")
+
+
+def smooth_times(log: str) -> list:
+    """The pipeline's per-iteration engine, rehydrate and finalize
+    seconds ('[smoothxg_tpu::smooth] N blocks: ...' lines)."""
+    return [ln.split("] ", 1)[1] for ln in log.splitlines()
+            if "[smoothxg_tpu::smooth] " in ln and " blocks: " in ln]
 
 
 def same_bytes(tag: str, out: str, maf: str, ref_out: str,
@@ -2272,6 +2342,244 @@ def sanitize_phase() -> None:
             [:3000])
 
 
+# phase 24: deep blocks.  pggb passes its haplotype count as -r, so a
+# block holds about as many sequences as the pangenome has haplotypes;
+# HPRC's year-1 release graph has 90
+DEEP_HAPS = 90
+DEEP_ARGS = ["-r", str(DEEP_HAPS), "-j", "5k", "-e", "5k"]
+DEEP_FLAGS = DEEP_ARGS + ["-l", "700,900,1100", "-t", "1"]
+DEEP_SEQS = (64, 96)         # sequences of the kernels' deep blocks
+DEEP_LEN = 100               # their bases (the plain versions' time)
+DEEP_KERNELS = ("poa_win", "poa_code", "poa_stacked")
+
+
+def plain_outputs(name: str, ins, caps) -> tuple:
+    """A whole-block kernel's plain version on numpy inputs, in a worker
+    process of phase 24's pool (one thread); returns its numpy outputs
+    and its seconds."""
+    import torch
+    from smoothxg_tpu_torch.ops.poa_code import poa_code_reference
+    from smoothxg_tpu_torch.ops.poa_stacked import poa_stacked_reference
+    from smoothxg_tpu_torch.ops.poa_win import poa_win_reference
+    torch.set_num_threads(1)
+    ref = {"poa_win": poa_win_reference, "poa_code": poa_code_reference,
+           "poa_stacked": poa_stacked_reference}[name]
+    t0 = time.perf_counter()
+    out = ref(*(torch.from_numpy(x) for x in ins), caps)
+    return [x.numpy() for x in out], time.perf_counter() - t0
+
+
+def deep_kernels_phase(torch, dev, pool) -> None:
+    """Phase 24 (a): blocks of 64 and 96 sequences (make_block's copies,
+    each with its own indels, and make_population_block's, copies of 8
+    founders) through the three whole-block kernels at the bulk tier
+    (4352, 2048), local, at the predecessor slots the engine launches
+    them with, each equal to its plain version (run in `pool`'s worker
+    processes meanwhile) and every block it did not flag to the native
+    engine; poa_win also at the TPU's 4 predecessor slots, to count what
+    they flag, with each block's native V and in-degree."""
+    import dataclasses
+
+    import numpy as np
+    from smoothxg_tpu_torch.ops.poa_engine import POAParams, TorchPOAEngine
+    from smoothxg_tpu_torch.ops.poa_win import pack_blocks, row_stride
+    from smoothxg_tpu_torch.testing.synth import (make_block,
+                                                  make_population_block)
+    from smoothxg_tpu_torch.tools.time_chase import CAPS, block_kernel
+    kern = {name: block_kernel(name) for name in DEEP_KERNELS}
+    caps = {name: mk(*CAPS) for name, (_, mk) in kern.items()}
+    native = TorchPOAEngine(device=dev).fallback
+    p = POAParams(local=True)
+    groups = []
+    for n in DEEP_SEQS:
+        rng = np.random.default_rng(SEED + 24 + n)
+        groups.append((n, [make_block(rng, DEEP_LEN, n, 0.01),
+                           make_population_block(rng, DEEP_LEN, n, 0.01)]))
+    runs = []
+    for n, blocks in groups:
+        ins = pack_blocks([(sq, p) for sq in blocks], CAPS[1])
+        for name in DEEP_KERNELS:
+            fut = pool.submit(plain_outputs, name,
+                              [x.numpy() for x in ins], caps[name])
+            got = kern[name][0](*(x.to(dev) for x in ins), caps[name])
+            torch.cuda.synchronize()
+            runs.append((n, blocks, ins, name, fut,
+                         [x.cpu() for x in got]))
+        tpu = kern["poa_win"][0](
+            *(x.to(dev) for x in ins),
+            dataclasses.replace(caps["poa_win"], pcap=4))[0].cpu()
+        graphs = native.poa_block_batch([(sq, [1] * n, p)
+                                         for sq in blocks])
+        why = []
+        for sq, g in zip(blocks, graphs):
+            preds: dict = {}
+            for pth in g.seq_paths:
+                for u, v in zip(pth, pth[1:]):
+                    preds.setdefault(v, set()).add(u)
+            why.append((len(g.base), max(map(len, preds.values()))))
+        say(f"deep blocks of {n} sequences (make_block, population) "
+            f"of ~{DEEP_LEN} bases: native V {[v for v, _ in why]}, "
+            f"in-degree {[d for _, d in why]}; poa_win at the TPU's 4 "
+            f"predecessor slots flags {int(tpu[:, 1].sum())} of "
+            f"{len(blocks)}")
+    flagged: dict = {}
+    for n, blocks, ins, name, fut, got in runs:
+        want = [torch.from_numpy(x) for x in fut.result()[0]]
+        label = f"{name} deep {n}"
+        err = hold_to_plain(got, want, label)
+        n_nat = hold_to_native(native, blocks, p, got, label)
+        flags = got[0][:, 1].tolist()
+        flagged.setdefault(name, []).extend(flags)
+        say(f"{label}: {len(blocks)} blocks equal to the plain version "
+            f"(max abs err {err}), {n_nat} equal to native, flags "
+            f"{flags} at {caps[name].pcap} predecessor slots; V "
+            f"{got[0][:, 0].tolist()}; geometry " + geometry_line(
+                name, len(blocks), caps[name],
+                row_stride(ins[1], CAPS[1])))
+    say("deep blocks redone (overflow flag) by kernel: " + ", ".join(
+        f"{name} {sum(f)} of {len(f)} ({caps[name].pcap} slots)"
+        for name, f in flagged.items()))
+
+
+def deep_plain(pool) -> dict:
+    """Phase 24 (c), submitted first (the longest jobs of `pool`): each
+    whole-block kernel's plain version on the deep timing block, all 96
+    sequences of tools/time_chase.deep_block."""
+    from smoothxg_tpu_torch.ops.poa_engine import POAParams
+    from smoothxg_tpu_torch.ops.poa_win import pack_blocks
+    from smoothxg_tpu_torch.tools import time_chase
+    ins = [x.numpy() for x in pack_blocks(
+        [(time_chase.deep_block(), POAParams(local=True))],
+        time_chase.CAPS[1])]
+    return {name: pool.submit(plain_outputs, name, ins,
+                              time_chase.block_kernel(name)[1](
+                                  *time_chase.CAPS))
+            for name in DEEP_KERNELS}
+
+
+def hold_deep_plain(torch, dev, got: dict, plain: dict) -> None:
+    """Phase 24 (c): each kernel's outputs on the deep timing block (R 96,
+    from phase 24 (b)) equal to its plain version (deep_plain's futures)
+    and to the native engine."""
+    from smoothxg_tpu_torch.ops.poa_engine import POAParams, TorchPOAEngine
+    from smoothxg_tpu_torch.tools import time_chase
+    deep = time_chase.deep_block()
+    p = POAParams(local=True)
+    native = TorchPOAEngine(device=dev).fallback
+    t0 = time.perf_counter()
+    for name in DEEP_KERNELS:
+        out, plain_s = plain[name].result()
+        label = f"{name} deep timing block (R {len(deep)})"
+        err = hold_to_plain(got[name], [torch.from_numpy(x) for x in out],
+                            label)
+        n_nat = hold_to_native(native, [deep], p, got[name], label)
+        say(f"{label}: equal to the plain version (max abs err {err}; "
+            f"plain version {plain_s:.1f} s on one worker), {n_nat} of 1 "
+            f"equal to native")
+    say(f"deep timing block's plain versions: waited "
+        f"{time.perf_counter() - t0:.1f} s for them")
+
+
+def deep_timing_phase(torch, dev, clock_mhz) -> dict:
+    """Phase 24 (b): each whole-block kernel on one block of the first
+    16, 64 and 96 sequences of tools/time_chase.deep_block (CUDA events,
+    the fastest of 2 launches after a warm one), the three kernels'
+    outputs equal to each other, beside the fill's bound.  Returns each
+    kernel's outputs at the deepest R."""
+    from smoothxg_tpu_torch.ops.poa_engine import POAParams
+    from smoothxg_tpu_torch.ops.poa_win import pack_blocks, row_stride
+    from smoothxg_tpu_torch.tools import time_chase
+    from smoothxg_tpu_torch.tools._probe import measure
+    deep = time_chase.deep_block()
+    p = POAParams(local=True)
+    for r in time_chase.DEEP:
+        ins = [x.to(dev) for x in pack_blocks([(deep[:r], p)],
+                                              time_chase.CAPS[1])]
+        times, outs = {}, {}
+        for name in DEEP_KERNELS:
+            kern, mkcaps = time_chase.block_kernel(name)
+            caps = mkcaps(*time_chase.CAPS)
+            outs[name] = [x.cpu() for x in kern(*ins, caps)]
+            if int(outs[name][0][0, 1]):
+                fail(f"{name}: the deep timing block flags at R {r}")
+            times[name] = measure(lambda: kern(*ins, caps), 2)
+        for name in DEEP_KERNELS[1:]:
+            if not all(torch.equal(a, b) for a, b in zip(
+                    outs[name], outs["poa_win"])):
+                fail(f"{name} != poa_win on the deep timing block, R {r}")
+        paths = outs["poa_win"][2]
+        cells, pcells = win_dp_work(deep[:r], [
+            paths[0, k, :len(s)].tolist() for k, s in enumerate(deep[:r])])
+        bound = int32_bound_ms(fill_ops(cells, pcells, True), clock_mhz)
+        say(f"deep timing R {r} (V {int(outs['poa_win'][0][0, 0])}, LS "
+            f"{row_stride(ins[1], time_chase.CAPS[1])}): " + ", ".join(
+                f"{n} {ms:.3f} ms" for n, ms in times.items())
+            + f" (outputs equal); bound {bound:.4f} ms ({cells} DP cells, "
+            f"{pcells} extra pred cells)")
+    return outs
+
+
+def deep_phase(torch, dev, clock_mhz) -> None:
+    """Phase 24: deep blocks through the three whole-block kernels, then
+    the fused CLI on the 90 x 80 kb pangenome at -t 1 (bytes equal to the
+    JAX package's --engine native run, started in a subprocess first)
+    and at -t 4 -l 700 in one rank.  The plain versions run meanwhile in
+    a pool of spawned workers, shut down before the -t 4 run."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from smoothxg_tpu_torch import cli
+    from smoothxg_tpu_torch.testing.synth import write_pangenome
+    from smoothxg_tpu_torch.utils import procpool
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(
+        max_workers=len(DEEP_SEQS) * len(DEEP_KERNELS),
+        mp_context=multiprocessing.get_context("spawn"))
+    gfa = write_pangenome(os.path.join(SMOKE_DIR, "deep.gfa"),
+                          haplotypes=DEEP_HAPS, length=80_000, seed=SEED)
+    out, maf, ref_out, ref_maf = (
+        os.path.join(SMOKE_DIR, f"deep_{t}.{x}")
+        for t in ("port", "native") for x in ("gfa", "maf"))
+    with open(os.path.join(SMOKE_DIR, "deep_native.log"), "w") as ref_log:
+        ref = subprocess.Popen(
+            [sys.executable, "-m", "smoothxg_tpu.cli", "-g", gfa, "-o",
+             ref_out, "-m", ref_maf, *DEEP_FLAGS, "--engine", "native"],
+            cwd=HERE, env=dict(os.environ, JAX_PLATFORMS="cpu"),
+            stdout=ref_log, stderr=subprocess.STDOUT)
+        try:
+            plain = deep_plain(pool)
+            deep_kernels_phase(torch, dev, pool)
+            torch.cuda.empty_cache()
+            got = deep_timing_phase(torch, dev, clock_mhz)
+            torch.cuda.empty_cache()
+            block_main_path(
+                f"deep main path ({DEEP_HAPS} x 80 kb, -t 1)", "poa_win",
+                lambda: cli.run(["-g", gfa, "-o", out, "-m", maf,
+                                 *DEEP_FLAGS]), clock_mhz, depth=48)
+            hold_deep_plain(torch, dev, got, plain)
+            rc = ref.wait(timeout=900)
+        finally:
+            pool.shutdown(cancel_futures=True)
+            if ref.poll() is None:
+                ref.kill()
+                ref.wait()
+    with open(os.path.join(SMOKE_DIR, "deep_native.log")) as f:
+        ref_text = f.read()
+    if rc != 0:
+        fail(f"deep native reference exited {rc}: {ref_text[-800:]}")
+    say(f"deep identity: native engine run "
+        f"({'; '.join(smoothing_phases(ref_text))})")
+    same_bytes("deep main path", out, maf, ref_out, ref_maf)
+    o4, m4 = (os.path.join(SMOKE_DIR, f"deep_t4.{x}") for x in ("gfa", "maf"))
+    block_main_path(
+        f"deep main path ({DEEP_HAPS} x 80 kb, -t 4 -l 700, one rank)",
+        "poa_win", lambda: cli.run(["-g", gfa, "-o", o4, "-m", m4,
+                                    *DEEP_ARGS, "-l", "700", "-t", "4"]),
+        clock_mhz, depth=48)
+    procpool.shutdown()
+    say(f"deep phase: {time.perf_counter() - t0:.1f} s")
+
+
 def engine_run(gfa: str, out: str, maf: str, engine):
     """The main path through the API with a pre-built engine:
     run_smoothing(config_from_args(<the CLI's flags>), engine=engine)."""
@@ -2494,6 +2802,10 @@ def main() -> None:
     # phase 23: every kernel entry under compute-sanitizer and the guard
     # allocator
     sanitize_phase()
+
+    # phase 24: deep blocks through the three whole-block kernels, and the
+    # main path at pggb's haplotype depth, at -t 1 and -t 4 in one rank
+    deep_phase(torch, dev, clock_mhz)
 
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "smoothxg_tpu."))

@@ -26,6 +26,39 @@ and raises its error.  FusedPallasEngine's backend-loss failover
 tunnel and per-variant jit: the port has no fallback that hides the card,
 and one library serves every tier, so neither is ported.
 
+Sequences per block (RW, `max_seqs`; FusedPallasEngine's is 48, the
+TPU's VMEM side buffers).  Nothing in the kernels counts sequences: RW is
+a launch argument, offsets into the planes are size_t, and the graph
+tables hold no per-sequence count (nsucc is only ever 1, npred stops at
+pcap, node ids are int16 to VW_MAX).  What a block's depth costs is:
+  * its sequence and path planes on the card, PLANE_BYTES = 5 B x RW x LW
+    (int8 sequences in, int32 paths out, at the tier's LW whatever the
+    lengths), next to its DP scratch of 16 B x (VW + 1) x LS;
+    `_tier_batch` counts both against SCRATCH_BUDGET, so a launch of
+    deep blocks holds fewer, but it launches at least one block;
+  * the D2H copy of paths[:, :, :maxl], 4 B a base of each sequence, at
+    most four fifths of the planes;
+  * its overflows: a node past VW (routed by the growth estimate and
+    flagged) and a node past pcap predecessors.  Deep blocks have more
+    alleles a site, so poa_win holds 8 predecessor slots (ops/poa_win.py
+    PCAP, the kernel's limit; 4 on the TPU): its tables at 8 slots still
+    fit one block's shared memory at the (4352, 2048) tier (205 KiB of
+    227 at one block an SM), and only the (6144, 3072) tier's move to
+    device memory (288 KiB); poa_code has 8 slots, poa_stacked 4 (its
+    2-bit slot field);
+  * its R - 1 rounds in order on one SM, L0 x (R - 1) DP rows: what
+    `_steal_costs` already counts, so the steal's balance follows depth.
+The default cap (`seq_cap`) is the one limit of these that binds: the
+depth at which one block's planes and DP scratch fill SCRATCH_BUDGET at
+the tier and variant that need the most, so that no launch, not even
+_tier_batch's single block, passes the budget: (24 GiB - 1,427 MB) /
+(5 B x 10240) = 475,451 sequences for poa_win's tiers, 1,233,903 for
+poa_stacked's, 1,230,414 for shape=(8704, 4096).  A deeper block goes to
+the native engine (counted in `fallbacks`).  The cap is a memory ceiling,
+not a time limit: the rounds' time grows with R (330 ms for R 96 x ~1 kb
+on an H100, chip smoke phase 24) and nothing caps it; blocks at pggb's
+depth hold about -r sequences (HPRC's release graph: 90).
+
 Tiers are (VW, LW, W): node capacity, sequence capacity, stored DP window.
 On the H100 the DP planes live in device memory at 16 bytes per cell
 (H, Hq, E1, E2 as int32 for poa_win), ~16 * VW * LS bytes of scratch per
@@ -87,6 +120,13 @@ class TorchPOAEngine:
              (8704, 4096, 4096), (8704, 10240, 3072))
     GROWTH_CAL = GROWTH_CAL
     SCRATCH_BUDGET = 24 << 30     # bytes of DP scratch per launch
+    # bytes of a block's sequence and path planes a (sequence slot,
+    # column): int8 sequences in, int32 paths out, both (RW, LW) on the
+    # card; with the DP scratch they make a launch's memory (_tier_batch)
+    # and set the default sequence cap (`seq_cap`, see the module
+    # docstring): (24 GiB - 1,427 MB) / (5 B x 10240) = 475,451 sequences
+    # at poa_win's tiers
+    PLANE_BYTES = 5
     # the most POA blocks one launch puts on a 132-SM H100 at once, by
     # kernel: poa_win and poa_code run two 256-thread blocks an SM
     # (poa_code at <= 128 registers), poa_stacked up to 8 one-warp POA
@@ -103,7 +143,7 @@ class TorchPOAEngine:
     DEV_ROWS_PS = 21.3e6
 
     def __init__(self, device: str | torch.device = "cuda",
-                 max_seqs: int = 48, tiers: tuple | None = None,
+                 max_seqs: int | None = None, tiers: tuple | None = None,
                  threads: int = 1, shape: tuple | None = None,
                  kernel: str = "win", devices: list | None = None,
                  steal: bool | None = None, max_batch: int | None = None):
@@ -131,8 +171,8 @@ class TorchPOAEngine:
                        and self.device.index is None else [self.device])
         self.devices = [resolve(d) for d in devices]
         self.tiers = tuple(tuple(t) for t in (tiers or self.TIERS))
-        self.RW = max_seqs
         self.max_batch = max_batch or self.MAX_BATCH[self.kernel]
+        self.RW = self.seq_cap() if max_seqs is None else max_seqs
         self.threads = threads
         # the CPU plain versions take the place of the reference's
         # interpret mode, where the steal is off by default
@@ -157,6 +197,20 @@ class TorchPOAEngine:
         self.redo = 0
         self.predicted_overflow = 0
         self.device_s = 0.0
+
+    def seq_cap(self) -> int:
+        """The default sequence cap: the depth at which one block's
+        sequence and path planes and its DP scratch fill SCRATCH_BUDGET,
+        at the tier and variant whose block needs the most, so that no
+        launch passes the budget."""
+        caps = []
+        for VW, LW, W in self.tiers:
+            for banded in {False, W < LW}:
+                words = self._kernel(VW, LW, W, True, banded)[2](
+                    stride_for(LW, LW))
+                caps.append((self.SCRATCH_BUDGET - 4 * words)
+                            // (self.PLANE_BYTES * LW))
+        return min(caps)
 
     def stats(self) -> dict:
         return {
@@ -330,15 +384,18 @@ class TorchPOAEngine:
         caps = WinCaps(VW, LW, W, local, banded)
         return poa_win, caps, caps.scratch_words
 
-    def _tier_batch(self, ti: int, banded: bool, maxlen: int) -> int:
+    def _tier_batch(self, ti: int, banded: bool, maxlen: int,
+                    depth: int) -> int:
         """Blocks per launch of tier `ti` for blocks of at most `maxlen`
-        bases: what SCRATCH_BUDGET holds at that row stride, capped at
-        max_batch, on each shard's device."""
+        bases and `depth` sequences: what SCRATCH_BUDGET holds of their DP
+        scratch at that row stride and their sequence and path planes at
+        RW = depth, capped at max_batch, on each shard's device."""
         VW, LW, W = self.tiers[ti]
         words = self._kernel(VW, LW, W, True, banded)[2](
             stride_for(maxlen, LW))
+        per_block = 4 * words + self.PLANE_BYTES * depth * LW
         return len(self.devices) * max(1, min(
-            self.max_batch, self.SCRATCH_BUDGET // (4 * words)))
+            self.max_batch, self.SCRATCH_BUDGET // per_block))
 
     def _route(self, seqs, params=None) -> int | None:
         """Smallest tier index this block fits, or None (native engine).
@@ -425,8 +482,9 @@ class TorchPOAEngine:
             idxs.sort(key=lambda i: (len(blocks[i][0]),
                                      len(blocks[i][0][0])), reverse=True)
             dev_rows += sum(self._steal_costs(blocks[i][0])[1] for i in idxs)
-            cap = self._tier_batch(ti, banded, max(
-                len(s) for i in idxs for s in blocks[i][0]))
+            cap = self._tier_batch(
+                ti, banded, max(len(s) for i in idxs for s in blocks[i][0]),
+                len(blocks[idxs[0]][0]))
             for s in range(0, len(idxs), cap):
                 handles.append(self._launch(blocks, idxs[s:s + cap], ti,
                                             local, banded))

@@ -60,7 +60,11 @@ import torch
 
 NEG = -(1 << 30)
 RING_CAP = 8
-PCAP = 4
+# predecessor slots per node: the kernel's limit (csrc/poa_win.cu
+# PCAP_MAX), not the TPU's 4; blocks at pggb's depth (-r = the haplotype
+# count) have more alleles a site: at 4 slots 2 of 4 blocks of 64-96
+# sequences overflowed to the native engine, at 8 none (chip smoke phase 24)
+PCAP = 8
 VW_MAX = 32766     # node ids and rows are int16 in the kernels' tables
 
 

@@ -331,15 +331,34 @@ def smooth_blocks(
             return _finish_tail(states, results, collect_stats, graph_cache,
                                 write_poa_blocks_ms, fasta_dir, max_rounds)
         t0 = _time.perf_counter()
-        graphs = engine.poa_block_batch(
-            [(es, st.weights, st.params) for st, es in zip(states, enc)])
-        ms_each = (_time.perf_counter() - t0) * 1e3 / max(len(states), 1)
+        inp = [(es, st.weights, st.params) for st, es in zip(states, enc)]
+        t_rehydrate = 0.0
+        if hasattr(engine, "poa_block_batch_iter"):
+            from ..ops.poa_rehydrate import rehydrate_device_raw
+            validate = getattr(engine, "validate", True)
+            graphs = [None] * len(states)
+            for i, kind, payload in engine.poa_block_batch_iter(inp):
+                if kind == "raw":
+                    t = _time.perf_counter()
+                    payload = rehydrate_device_raw(inp[i][0], inp[i][1],
+                                                   payload, validate)
+                    t_rehydrate += _time.perf_counter() - t
+                graphs[i] = payload
+        else:
+            graphs = engine.poa_block_batch(inp)
+        t1 = _time.perf_counter()
+        ms_each = (t1 - t0) * 1e3 / max(len(states), 1)
         for st, g in zip(states, graphs):
             st.graph = g
             st.poa_ms = ms_each
-        return _finish_blocks(idx, states, consensus_base_name, produce_maf,
-                              collect_stats, write_poa_blocks_ms, fasta_dir,
-                              graph_cache, max_rounds, threads)
+        res = _finish_blocks(idx, states, consensus_base_name, produce_maf,
+                             collect_stats, write_poa_blocks_ms, fasta_dir,
+                             graph_cache, max_rounds, threads)
+        Log.info("smooth", f"{len(states)} blocks: engine "
+                 f"{t1 - t0 - t_rehydrate:.2f}s, rehydrate "
+                 f"{t_rehydrate:.2f}s, finalize "
+                 f"{_time.perf_counter() - t1:.2f}s")
+        return res
 
     # round-synchronized POA: round 0 seeds the graph, round r aligns the
     # r-th unique sequence of every still-active block (device-batchable)
@@ -489,19 +508,26 @@ def _finalize_chunk_raw(idx_ver: int, idx_path: str, items: list,
                         produce_maf: bool) -> list:
     """Pool worker for the pipelined fused path: rehydrate the engine's
     raw device payload (or accept a finished fallback graph), then
-    finalize — all off the main process."""
+    finalize — all off the main process.  Returns (results, rehydrate
+    seconds, finalize seconds)."""
+    import time as _time
     _W_IDX = _worker_idx(idx_ver, idx_path)
     from ..ops.poa_rehydrate import rehydrate_device_raw
     out = []
+    t_rehydrate = t_finalize = 0.0
     for st, kind, payload, enc_seqs, validate in items:
+        t0 = _time.perf_counter()
         if kind == "graph":
             st.graph = payload
         else:
             st.graph = rehydrate_device_raw(enc_seqs, st.weights, payload,
                                             validate)
+        t1 = _time.perf_counter()
         out.append(_finalize_block(_W_IDX, st, add_consensus,
                                    consensus_base_name, produce_maf))
-    return out
+        t_rehydrate += t1 - t0
+        t_finalize += _time.perf_counter() - t1
+    return out, t_rehydrate, t_finalize
 
 
 def _smooth_fused_pipelined(idx, engine, states, enc, consensus_base_name,
@@ -538,13 +564,21 @@ def _smooth_fused_pipelined(idx, engine, states, enc, consensus_base_name,
             if len(buf) >= 8:
                 flush()
         flush()
+        t_iter = _time.perf_counter() - t0
         results: list = [None] * len(states)
+        t_rehydrate = t_finalize = 0.0
         for idxs, f in futs:
-            for i, res in zip(idxs, f.result()):
-                results[i] = res
+            res, t_r, t_f = f.result()
+            t_rehydrate += t_r
+            t_finalize += t_f
+            for i, r in zip(idxs, res):
+                results[i] = r
     ms_each = (_time.perf_counter() - t0) * 1e3 / max(len(states), 1)
     for st in states:
         st.poa_ms = ms_each
+    Log.info("smooth", f"{len(states)} blocks: engine {t_iter:.2f}s, "
+             f"rehydrate {t_rehydrate:.2f}s, finalize {t_finalize:.2f}s "
+             f"(rehydrate and finalize summed over {threads} workers)")
     return results
 
 

@@ -14,7 +14,8 @@ backbone order; edges are exactly the consecutive steps of the paths.  The
 same arguments give the same bytes.
 
 `make_block` draws a single POA block (a sequence and mutated copies) for
-the kernel's tests.
+the kernel's tests; `make_population_block` a deep one whose copies share
+a few founders' variants.
 """
 from __future__ import annotations
 
@@ -122,6 +123,27 @@ def make_block(rng: np.random.Generator, length: int, n: int,
             del s[p:p + int(rng.integers(1, 8))]
         out.append(np.asarray(s))
     return [_ACGT[np.asarray(x)] for x in out]
+
+
+def make_population_block(rng: np.random.Generator, length: int, n: int,
+                          div: float, founders: int = 8) -> list:
+    """One seeded deep POA block shaped like a pangenome's at pggb's -r: n
+    sequences, sequence r a copy of founder r mod `founders` (the draws of
+    make_block(rng, length, founders, div)), each copy past the founders
+    with 1 + Poisson(length * div / 4) private SNVs.  The haplotypes share
+    their variants, so the graph and its in-degree grow far slower with n
+    than make_block's, whose every copy carries its own indels."""
+    hap = make_block(rng, length, founders, div)
+    out = []
+    for r in range(n):
+        s = hap[r % founders].copy()
+        if r >= founders:
+            k = 1 + int(rng.poisson(length * div / 4))
+            pos = rng.integers(0, len(s), k)
+            code = np.searchsorted(_ACGT, s[pos])
+            s[pos] = _ACGT[(code + rng.integers(1, 4, k)) % 4]
+        out.append(s)
+    return out
 
 
 def make_round_task(rng: np.random.Generator, length: int, n: int,

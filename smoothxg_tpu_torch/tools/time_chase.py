@@ -9,6 +9,14 @@ Cases, each the fastest of `reps` launches after a warm one (CUDA events):
            1,207) at caps (4352, 2048), one launch
     132    132 copies of it in one launch (one per SM)
     1056   1,056 copies at caps (1280, 1024) (8 per SM)
+    R16, R64, R96
+           one block of the first 16, 64 and 96 sequences of the deep
+           timing block (`deep_block`: 96 x ~1 kb from 8 founders, the
+           shape of a block at pggb's -r 90; V 1,107 / 1,268 / 1,369,
+           in-degree at most 4) at caps (4352, 2048), one launch each
+    T3072  one block of 16 sequences of ~2.5 kb at caps (6144, 3072), the
+           tier whose graph tables leave shared memory at poa_win's 8
+           predecessor slots
   round kernel (poa_round):
     task   the chip smoke's phase-6 timing task (a ~1 kb local query
            against a graph of seven ~1 kb sequences, V ~ 1,220)
@@ -18,8 +26,10 @@ Each case's outputs are digested (sha256 of the wrapper's outputs), so that
 two checkouts can be seen to compute the same bytes.  Prints one line per
 case and a JSON line.  Needs CUDA.
 
-Usage: python -m smoothxg_tpu_torch.tools.time_chase [reps] [kernel ...]
-(kernels: poa_win poa_round poa_code poa_stacked; default all four)
+Usage: python -m smoothxg_tpu_torch.tools.time_chase [reps] [--pcap=N]
+[kernel ...] (kernels: poa_win poa_round poa_code poa_stacked; default all
+four; --pcap: poa_win's predecessor slots, default ops/poa_win.PCAP, so
+that 4, the TPU's, can be timed against it in turns)
 """
 from __future__ import annotations
 
@@ -54,6 +64,8 @@ ROUND_PLAN = ((True, 60, (150, 600), (3, 8), 0.03),
               (True, 6, (1800, 2000), (10, 12), 0.12),
               (False, 6, (1800, 2000), (10, 12), 0.12))
 CAPS = (4352, 2048)
+WIDE_CAPS = (6144, 3072)
+DEEP = (16, 64, 96)        # sequences of the deep timing block's cases
 FULL_CAPS = (1280, 1024)
 COPIES = (132, 1056)
 ROUND_COPIES = (132, 264)
@@ -75,6 +87,14 @@ def timing_block() -> list:
     rng = np.random.default_rng(SEED)
     phase3_blocks(rng)
     return make_block(rng, 1000, 16, 0.01)
+
+
+def deep_block() -> list:
+    """The deep timing block: 96 sequences of ~1 kb, copies of 8 founders
+    with private SNVs (testing/synth.make_population_block)."""
+    from ..testing.synth import make_population_block
+    return make_population_block(np.random.default_rng(SEED + 24), 1000,
+                                 max(DEEP), 0.01)
 
 
 def round_groups(rng) -> list:
@@ -130,26 +150,44 @@ def copies(ins, n: int, dev) -> list:
             for x in ins]
 
 
-def block_cases(label: str, dev, reps: int) -> dict:
-    """A whole-block kernel on the timing block, 132 and 1,056 copies."""
-    import torch
+def wide_block() -> list:
+    """The T3072 case's block: 16 sequences of ~2.5 kb."""
+    from ..testing.synth import make_block
+    return make_block(np.random.default_rng(SEED + 3), 2500, 16, 0.01)
+
+
+def block_kernel(label: str, pcap: int | None = None):
+    """(wrapper, caps of (VW, LW)) of a whole-block kernel, local, full
+    width; poa_win at `pcap` predecessor slots (default its PCAP)."""
     from ..ops.poa_code import CodeCaps, poa_code
-    from ..ops.poa_host import POAParams
     from ..ops.poa_stacked import poa_stacked, stacked_caps
-    from ..ops.poa_win import WinCaps, pack_blocks, poa_win
-    from ._probe import measure
-    kern, mkcaps = {
-        "poa_win": (poa_win, lambda VW, LW: WinCaps(VW, LW, LW, True, False)),
+    from ..ops.poa_win import PCAP, WinCaps, poa_win
+    return {
+        "poa_win": (poa_win, lambda VW, LW: WinCaps(
+            VW, LW, LW, True, False, pcap=pcap or PCAP)),
         "poa_code": (poa_code, lambda VW, LW: CodeCaps(VW, LW, True, False)),
         "poa_stacked": (poa_stacked,
                         lambda VW, LW: stacked_caps(VW, LW, True, False)),
     }[label]
-    blk = timing_block()
+
+
+def block_cases(label: str, dev, reps: int, pcap: int | None = None) -> dict:
+    """A whole-block kernel on the timing block, 132 and 1,056 copies, on
+    the deep timing block at the depths DEEP, and on the wide block."""
+    import torch
+    from ..ops.poa_host import POAParams
+    from ..ops.poa_win import pack_blocks
+    from ._probe import measure
+    kern, mkcaps = block_kernel(label, pcap)
+    blk, deep = timing_block(), deep_block()
     p = POAParams(local=True)
     row = {}
-    for case, caps, n in (("block", CAPS, 1), ("132", CAPS, COPIES[0]),
-                          ("1056", FULL_CAPS, COPIES[1])):
-        ins = copies(pack_blocks([(blk, p)], caps[1]), n, dev)
+    for case, sq, caps, n in (
+            ("block", blk, CAPS, 1), ("132", blk, CAPS, COPIES[0]),
+            ("1056", blk, FULL_CAPS, COPIES[1]),
+            *((f"R{r}", deep[:r], CAPS, 1) for r in DEEP),
+            ("T3072", wide_block(), WIDE_CAPS, 1)):
+        ins = copies(pack_blocks([(sq, p)], caps[1]), n, dev)
         c = mkcaps(*caps)
         out = kern(*ins, c)
         if int(out[0][:, 1].sum()):
@@ -157,9 +195,9 @@ def block_cases(label: str, dev, reps: int) -> dict:
                              f"{caps}")
         ms = measure(lambda: kern(*ins, c), reps)
         row[case] = {"ms": ms, "digest": digest(out), "V": int(out[0][0, 0])}
-        print(f"{label} {case} ({n} x V{row[case]['V']} at V{caps[0]}x"
-              f"L{caps[1]}): {ms:.3f} ms, outputs {row[case]['digest']}",
-              flush=True)
+        print(f"{label} {case} ({n} x {len(sq)} sequences, V"
+              f"{row[case]['V']} at V{caps[0]}xL{caps[1]}): {ms:.3f} ms, "
+              f"outputs {row[case]['digest']}", flush=True)
         del ins, out
         torch.cuda.empty_cache()
     return row
@@ -193,6 +231,9 @@ def round_cases(dev, reps: int) -> dict:
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     reps = int(argv.pop(0)) if argv and argv[0].isdigit() else 3
+    pcap = None
+    if argv and argv[0].startswith("--pcap="):
+        pcap = int(argv.pop(0).split("=", 1)[1])
     names = argv or list(KERNELS)
     bad = [n for n in names if n not in KERNELS]
     if bad:
@@ -208,9 +249,10 @@ def main(argv=None) -> int:
         return 1
     name, smi, mhz = card()
     res = {n: round_cases(dev, reps) if n == "poa_round"
-           else block_cases(n, dev, reps) for n in names}
+           else block_cases(n, dev, reps, pcap) for n in names}
     print(json.dumps({"tool": "time_chase", "device": {
-        "kind": name, "smi": smi, "max_sm_mhz": mhz}, "reps": reps, **res}),
+        "kind": name, "smi": smi, "max_sm_mhz": mhz}, "reps": reps,
+        "pcap": pcap, **res}),
         flush=True)
     return 0
 

@@ -82,10 +82,10 @@ def test_fan_in_of_six_stays_on_the_kernel():
 def test_batch_is_sized_from_the_row_stride():
     """At the main path's tier a launch holds 45 full-width blocks but 164
     of ~1.1 kb: the main path's 308 blocks in 3 iterations take 3
-    launches, not 8."""
+    launches, not 8 (16 sequences a block: their planes count too)."""
     eng = TorchPOAEngine(device="cpu", shape=(8704, 4096))
-    assert eng._tier_batch(0, False, 4095) == 45
-    assert eng._tier_batch(0, False, 1100) == 164
+    assert eng._tier_batch(0, False, 4095, 16) == 45
+    assert eng._tier_batch(0, False, 1100, 16) == 164
 
 
 def test_short_blocks_share_a_launch_with_the_same_graphs():
@@ -96,9 +96,10 @@ def test_short_blocks_share_a_launch_with_the_same_graphs():
     seqs = [make_block(rng, int(rng.integers(20, 28)), 3, 0.05)
             for _ in range(6)]
     eng = TorchPOAEngine(device="cpu", shape=(512, 256))
-    eng.SCRATCH_BUDGET = 2 * 4 * eng._kernel(512, 256, 256, True,
-                                             False)[2](256)
-    assert eng._tier_batch(0, False, 255) == 2
+    eng.SCRATCH_BUDGET = 2 * (4 * eng._kernel(512, 256, 256, True,
+                                              False)[2](256)
+                              + eng.PLANE_BYTES * 3 * 256)
+    assert eng._tier_batch(0, False, 255, 3) == 2
     got = eng.poa_block_batch([(sq, [1] * 3, PortParams(local=True))
                                for sq in seqs])
     assert eng.stats()["calls"] == 1

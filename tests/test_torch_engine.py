@@ -93,15 +93,16 @@ def test_engine_matches_oracle_on_degenerate_blocks():
 
 
 def test_overflow_redo_and_fallback_are_native_and_counted():
-    """A node with more than 4 predecessors overflows the kernel and is
-    redone on the native engine; a block with more sequences than the
-    engine takes never reaches the kernel.  Both give oracle graphs."""
-    fan_in = [encode_seq("AAAA" + x + "CCCC") for x in "ACGTNR"]
+    """A node with more than 8 predecessors (poa_win's slots) overflows
+    the kernel and is redone on the native engine; a block with more
+    sequences than the engine takes never reaches the kernel.  Both give
+    oracle graphs."""
+    fan_in = [encode_seq("AAAA" + x + "CCCC") for x in "ACGTNRYKM"]
     p = POAParams(local=False)
-    many = [encode_seq("ACGTTGCA")] * 7
+    many = [encode_seq("ACGTTGCA")] * 10
     eng = TorchPOAEngine(device="cpu", tiers=((512, 256, 256),),
-                         max_seqs=6)
-    blocks = [(fan_in, [1] * 6, p), (many, [1] * 7, p)]
+                         max_seqs=9)
+    blocks = [(fan_in, [1] * 9, p), (many, [1] * 10, p)]
     graphs = eng.poa_block_batch(port_blocks(blocks))
     for (sq, _, pp), g in zip(blocks, graphs):
         _same_graph(g, _oracle(sq, pp))

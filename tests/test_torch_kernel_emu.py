@@ -29,7 +29,7 @@ KERNELS = {
     "poa_win": (poa_win_reference,
                 lambda VW, LW, local, banded: WinCaps(
                     VW, LW, 3 * LW // 4 if banded else LW, local, banded),
-                lambda c, LS: c.scratch_words(LS), 4, 5),
+                lambda c, LS: c.scratch_words(LS), 8, 9),
     "poa_code": (poa_code_reference, CodeCaps,
                  lambda c, LS: c.scratch_words(LS), 8, 9),
     "poa_stacked": (poa_stacked_reference, stacked_caps, scratch_words,

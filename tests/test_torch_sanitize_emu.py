@@ -39,7 +39,7 @@ BLOCK = {
     "poa_win": (poa_win_reference,
                 lambda VW, LW, local, banded: WinCaps(
                     VW, LW, 3 * LW // 4 if banded else LW, local, banded),
-                lambda c, LS: c.scratch_words(LS), 4, 132),
+                lambda c, LS: c.scratch_words(LS), 8, 132),
     "poa_code": (poa_code_reference, CodeCaps,
                  lambda c, LS: c.scratch_words(LS), 8, 132),
     "poa_stacked": (poa_stacked_reference, stacked_caps, scratch_words, 4,

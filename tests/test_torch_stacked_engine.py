@@ -78,14 +78,15 @@ def test_fan_in_of_six_is_redone_natively():
 
 
 def test_batch_is_sized_from_the_row_stride():
-    """At the (4352, 2048) tier a launch holds 206 full-width blocks but
-    366 of ~1.1 kb; up to 1,056 (8 a thread block) where they fit."""
+    """At the (4352, 2048) tier a launch holds 205 full-width blocks of
+    16 sequences but 365 of ~1.1 kb; up to 1,056 (8 a thread block) where
+    they fit."""
     eng = TorchPOAEngine(device="cpu", kernel="stacked")
-    assert eng._tier_batch(0, False, 2047) == 206
-    assert eng._tier_batch(0, False, 1100) == 366
+    assert eng._tier_batch(0, False, 2047, 16) == 205
+    assert eng._tier_batch(0, False, 1100, 16) == 365
     small = TorchPOAEngine(device="cpu", kernel="stacked",
                            tiers=((512, 256, 256),))
-    assert small._tier_batch(0, False, 100) == 1056
+    assert small._tier_batch(0, False, 100, 16) == 1056
 
 
 def test_short_blocks_share_a_launch_with_the_same_graphs():
@@ -97,9 +98,10 @@ def test_short_blocks_share_a_launch_with_the_same_graphs():
             for _ in range(6)]
     eng = TorchPOAEngine(device="cpu", kernel="stacked",
                          tiers=((512, 256, 256),))
-    eng.SCRATCH_BUDGET = 4 * 4 * eng._kernel(512, 256, 256, False,
-                                             False)[2](256)
-    assert eng._tier_batch(0, False, 255) == 4
+    eng.SCRATCH_BUDGET = 4 * (4 * eng._kernel(512, 256, 256, False,
+                                              False)[2](256)
+                              + eng.PLANE_BYTES * 3 * 256)
+    assert eng._tier_batch(0, False, 255, 3) == 4
     got = eng.poa_block_batch([(sq, [1] * 3, PortParams(local=False))
                                for sq in seqs])
     assert eng.stats()["calls"] == 1

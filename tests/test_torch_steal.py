@@ -61,7 +61,7 @@ def test_steal_defaults():
     assert eng.max_batch == TorchPOAEngine.MAX_BATCH["win"]
     assert TorchPOAEngine(device="cpu", kernel="stacked").max_batch == 1056
     small = TorchPOAEngine(device="cpu", max_batch=3)
-    assert small._tier_batch(0, False, 100) == 3
+    assert small._tier_batch(0, False, 100, 16) == 3
     st = eng.stats()
     assert st["stolen"] == 0
     assert st["host_cells_per_s"] == TorchPOAEngine.NATIVE_CELLS_PS

@@ -84,3 +84,22 @@ def test_round_cuts_apply_to_the_kernel():
     assert len(set(outs)) == len(outs)
     with pytest.raises(ValueError, match="traceback"):
         round_cuts.patched(outs[1], ("traceback",))
+
+
+def test_wide_block_fits_its_tier_at_four_slots():
+    """time_chase's T3072 case: 16 sequences of ~2.5 kb that fit the
+    (6144, 3072) tier's nodes and columns with no node past 4
+    predecessors, so that poa_win can be timed on it at 4 and at 8
+    slots."""
+    from smoothxg_tpu_torch.ops.poa_host import POAParams
+    from smoothxg_tpu_torch.ops.poa_native import NativePOAEngine
+    blk = time_chase.wide_block()
+    g = NativePOAEngine().poa_block_batch(
+        [(blk, [1] * len(blk), POAParams(local=True))])[0]
+    preds: dict = {}
+    for pth in g.seq_paths:
+        for u, v in zip(pth, pth[1:]):
+            preds.setdefault(v, set()).add(u)
+    VW, LW = time_chase.WIDE_CAPS
+    assert len(blk) == 16 and 2048 < max(map(len, blk)) < LW
+    assert len(g.base) <= VW and max(map(len, preds.values())) <= 4
