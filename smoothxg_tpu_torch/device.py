@@ -1,8 +1,8 @@
 """Explicit device selection: the port never picks a device behind the
-caller's back, and never falls back from CUDA to the CPU."""
+caller's back, and never falls back from CUDA to the CPU.  torch is
+imported where it is used, so the host stages that import this module stay
+free of it."""
 from __future__ import annotations
-
-import torch
 
 
 _GPU_ENGINES = ("the GPU engines (fused, pallas, jax) run their POA kernels "
@@ -17,6 +17,7 @@ def resolve(device: str | torch.device | None = "cuda",
     for one on a machine without CUDA raises instead of quietly running on
     the CPU.  `what` says what needs the card and `instead` what a CPU run
     takes, for the message."""
+    import torch
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

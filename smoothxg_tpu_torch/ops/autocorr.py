@@ -19,14 +19,15 @@ tensors and runs its plain PyTorch version, `autocorr_counts_reference`,
 for CPU tensors; the statistics (corr = count / window, mu, sd and z in
 float64) run on the host as in `repeat`, so every route gives the same
 bits.  Like the JAX package's, the pipeline never calls it
-(pipeline/breaks.py calls `repeat`).
+(pipeline/breaks.py calls `repeat`).  torch is imported inside the
+functions of the batched route, as the JAX package imports jax there, so
+the break stage and its pool workers never load it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from ..device import resolve
 
@@ -83,6 +84,7 @@ def autocorr_counts_reference(rows: torch.Tensor, lens: torch.Tensor,
     chunked over the lags so that no chunk holds more than _CHUNK_ELEMS
     compares.  Lengths are clipped to [0, Lpad] and a negative lag counts
     0, as in the kernel.  (B, G) int32."""
+    import torch
     B, Lpad = rows.shape
     G = lags.numel()
     out = torch.zeros((B, G), dtype=torch.int32, device=rows.device)
@@ -109,6 +111,7 @@ def autocorr_counts(rows: torch.Tensor, lens: torch.Tensor,
     on a launch error); CPU tensors run `autocorr_counts_reference`.  A
     `stats` dict on a CUDA call gets the plan the kernels made
     (`plan_stats`; this waits for the launch).  (B, G) int32."""
+    import torch
     if rows.dtype != torch.uint8 or rows.dim() != 2 \
             or lens.dtype != torch.int32 or lens.shape != rows.shape[:1] \
             or lags.dtype != torch.int32 or lags.dim() != 1 \
@@ -193,6 +196,7 @@ def word_rows(rows: torch.Tensor) -> torch.Tensor:
     """The rows as the kernel reads them: contiguous, 4-byte aligned, and
     padded with zero columns to a multiple of 4 (the padding lies past
     every length, so no count changes)."""
+    import torch
     B, Lpad = rows.shape
     if Lpad % 4 == 0 and rows.is_contiguous() and rows.data_ptr() % 4 == 0:
         return rows
@@ -237,6 +241,7 @@ def repeat_batch(seqs: list, min_lag: int, max_lag: int,
     package's repeat_batch.  The rows are padded to a multiple of 4 bytes,
     not to the JAX package's power-of-two bucket: no count depends on the
     padding."""
+    import torch
     dev = resolve(device, what="repeat_batch's counts run on the GPU",
                   instead="pass device='cpu' for the plain version")
     if not seqs:

@@ -20,6 +20,7 @@ paths" preserving variation above a minimum allele length:
 from __future__ import annotations
 
 import hashlib
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -557,14 +558,18 @@ _WORKER_IDX_CACHE: dict = {}
 
 def _worker_index(smoothed_gfa: str):
     """Per-worker FlatIndex cache: a pool worker serving many group
-    chunks of the same spec reads the smoothed GFA once."""
-    idx = _WORKER_IDX_CACHE.get(smoothed_gfa)
+    chunks of the same spec reads the smoothed GFA once.  Keyed by the
+    file's path, mtime and size (ROADMAP C5): the pool outlives a run, so
+    a GFA rewritten at the same path by a later run is read again."""
+    st = os.stat(smoothed_gfa)
+    key = (smoothed_gfa, st.st_mtime_ns, st.st_size)
+    idx = _WORKER_IDX_CACHE.get(key)
     if idx is None:
         from ..graph.index import FlatIndex
         from ..io.gfa import read_gfa
         idx = FlatIndex(read_gfa(smoothed_gfa))
         _WORKER_IDX_CACHE.clear()
-        _WORKER_IDX_CACHE[smoothed_gfa] = idx
+        _WORKER_IDX_CACHE[key] = idx
     return idx
 
 
@@ -600,7 +605,6 @@ def _build_one_spec(smoothed_gfa: str, spec: ConsensusSpec,
     """Worker entry: read the smoothed GFA, build one spec's consensus
     graph, write `<displayname>.gfa` under outdir (passed explicitly —
     pool workers keep the cwd they were spawned with, not the caller's)."""
-    import os
     from ..io.gfa import write_gfa
     idx = _worker_index(smoothed_gfa)
     cg = create_consensus_graph(
@@ -623,7 +627,6 @@ def build_consensus_specs(smoothed_gfa: str, specs: list[ConsensusSpec],
     create_consensus_graph; reference OMPs the group loop,
     src/consensus_graph.cpp:709)."""
     if threads > 1 and len(specs) > 1:
-        import os
         from ..utils.procpool import get_pool
         pool = get_pool(min(threads, len(specs)))
         outdir = os.getcwd()

@@ -13,8 +13,6 @@ equivalent to `odgi sort -p Ygs` + `odgi chop`):
 """
 from __future__ import annotations
 
-import torch
-
 from ..graph.mutable import MutableGraph
 from ..utils.progress import Log
 
@@ -29,6 +27,7 @@ def prep(g: MutableGraph, node_chop: int = 100, use_sgd: bool = True,
     term updates an iteration ("cuda": the kernel, "cpu": its plain
     version)."""
     if use_sgd:
+        import torch
         from ..ops.sgd import path_sgd_order
         order = path_sgd_order(g, min_term_updates_factor=sgd_term_updates,
                                threads=threads,

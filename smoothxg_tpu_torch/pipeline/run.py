@@ -9,14 +9,14 @@ smoothxg_tpu/pipeline/run.py whose engines are the port's: the GPU engines,
 the SGD layout at 5M term updates an iteration or more and the split
 stage's device routes run on `device` (their plain versions on a CPU run);
 a multi-process run (dist_size > 1, parallel/multiproc.py) puts rank r on
-card r mod the visible cards.
+card r mod the visible cards.  torch is imported where it is used: each
+`-t N` pool worker is spawned and imports the CLI, and so this module,
+again as its main module, and must not pay for torch there.
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-
-import torch
 
 from ..graph.index import FlatIndex
 from ..io.gfa import read_gfa, write_gfa
@@ -163,6 +163,7 @@ def run_smoothing(cfg: Config, device: str | torch.device = "cuda",
         from ..parallel.multiproc import init_process_group
         init_process_group(cfg.dist_coordinator, cfg.dist_size,
                            cfg.dist_rank)
+        import torch
         device = torch.device(device)
         if device.type == "cuda" and device.index is None \
                 and torch.cuda.is_available():

@@ -75,6 +75,37 @@ def test_banded_tasks_go_to_the_oracle_and_are_counted():
     assert st["calls"] == 0
 
 
+def test_interpret_pallas_engine_ignores_the_band_the_port_keeps():
+    """ROADMAP C7 on one banded task (abPOA's wb = 311, as the long-block
+    policy sets it): the JAX package's PallasPOAEngine passes no band to
+    its kernel (poa_pallas.py:533-559, :636), so in interpret mode it
+    returns the unbanded alignment, not poa_host.align's banded one.  The
+    port's round engine sends the task to the oracle and gives the banded
+    alignment.  The query carries an insertion and a deletion of 400
+    bases, so its length equals the graph's depth and the unbanded path
+    leaves the band (half-width 347)."""
+    rng = np.random.default_rng(11)
+    n, shift = 1200, 400
+    base = rng.choice(ALPHA, n)
+    gj, gp = grow([base, mutate(rng, base, 0.02)], False)
+    a, b = n // 4, n // 2
+    q = np.concatenate([base[:a], rng.choice(ALPHA, shift), base[a:b],
+                        base[b + shift:]]).astype(np.uint8)
+    pset = (1, 4, 6, 2, 26, 1)
+    pj = jax_host.POAParams(*pset, local=False, wb=311)
+    pp = poa_host.POAParams(*pset, local=False, wb=311)
+    assert len(q) == n and pp.band_w(n) < shift
+    banded = jax_host.align(gj, q, pj)
+    unbanded = jax_host.align(gj, q, jax_host.POAParams(*pset, local=False))
+    assert banded != unbanded
+    pallas = PallasPOAEngine(interpret=True).align_batch([(gj, q, pj)])[0]
+    assert pallas == unbanded != banded          # the reference diverges
+    eng = TorchRoundPOAEngine(device="cpu")
+    assert eng.align_batch([(gp, q, pp)]) == [poa_host.align(gp, q, pp)] \
+        == [banded]
+    assert eng.stats()["fallback_reasons"] == {"band": 1}
+
+
 def test_long_sequence_runs_on_the_kernel():
     """A sequence past the Pallas packing (L + 2 >= 2^15), which the JAX
     engine sends to the host, stays on the kernel's route."""
