@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch + CUDA port (smoothxg_tpu_torch) on one GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(`python3 chip_smoke.py --long H`: phases 1, 2 and 25 alone, on the
+generator's H x 80 kb pangenome at -r H; the smoke runs phase 25 at 16)
 
 Phases, one line each or more; any failure exits nonzero and prints no
 result:
@@ -149,12 +151,12 @@ result:
      plain version, under compute-sanitizer's memcheck, racecheck,
      synccheck and initcheck at once, each in a process of its own (a
      line a tool: version, seconds, kernels covered, reports; a tool that
-     does not run on this card says why), and then under the guard
-     allocator (testing/guard_alloc.cu: guard bands around every
+     does not run on this card says why), and beside them under the
+     guard allocator (testing/guard_alloc.cu: guard bands around every
      allocation, poisons 0x00 and 0xff in memory and in shared memory);
      the expected reports (tools/sanitize.EXPECTED) are printed, and any
-     other report, a guard band written or an entry that disagrees with
-     its plain version fails.
+     other report, a guard band written, an entry that disagrees with
+     its plain version or a child past SANITIZE_TIMEOUT fails.
  24. deep blocks (pggb passes its haplotype count as -r; HPRC's year-1
      graph has 90): (a) blocks of 64 and 96 sequences of ~100 bases
      (make_block's and make_population_block's, seeded) through poa_win,
@@ -172,14 +174,39 @@ result:
      the same input (a subprocess started when the phase starts); (d) the
      same input at -t 4 -l 700 in one rank (the finalize pool): exit 0,
      >= 90% of the blocks on the kernel; the phase's seconds.
+ 25. the CLI's default -l 4000 (ranges cut at 8,000 bp and padded by 311 a
+     side), on the tiers re-derived for the card: (a) the fused CLI on
+     phase 4's pangenome with -r 16 -j 5k -e 5k -l 4000 -t 1, once at the
+     default --long-poa-band and once at 0, each into its own directory:
+     every block on the kernel apart from overflow redos (a block that ran
+     natively without a launch fails), blocks by tier, fallbacks by
+     reason, the device share of blocks and of DP cells, the engine,
+     rehydrate and finalize seconds, and GFA and MAF sha256 equal to the
+     JAX package's CLI with --engine native at the same flags (both
+     started when the phase starts); (b) one long block of each variant
+     at the (8704, 8704) tier (band 0's full-width block of the most DP
+     cells, the default band's banded block whose window passed 3,072
+     columns), cut to 3 sequences, through poa_win and poa_stacked, each
+     equal to its plain version (in a pool of spawned workers) and to the
+     native engine, with its time and geometry; the phase's seconds.
 Every main path (4, 7, 9, 11, the probes' phase 12, 14's prep, 16, 18, 21,
-22 (a) and 24 (c), (d)) runs with all seventeen wrappers' launch counts set
-to 0 just before it and read just after: its own kernels must have
-launched and no other.  Then the
+22 (a), 24 (c), (d) and 25 (a)) runs with all seventeen wrappers' launch
+counts set to 0 just before it and read just after: its own kernels must
+have launched and no other.  Then the
 kernels' JSON line, the nvidia-smi line and the result line.  No module
 of jax or of the JAX package may be loaded in this process.
+The plain versions of the whole-block, round and batch kernels (phases
+3, 6, 8, 10, 13, 17, 24 and 25) and phase 15's numpy mirror of ident run
+in pools of PLAIN_WORKERS spawned processes of one thread each, handed
+their inputs when a phase starts, so their seconds (`plain_ms`) are one
+worker's; phase 5's reference runs beside phases 3 and 4, and the three
+builds of phase 2 beside each other.  Each phase's first line goes to
+stderr too, and past WATCHDOG_S seconds every thread's stack is written
+there.
 """
+import atexit
 import contextlib
+import faulthandler
 import hashlib
 import io
 import json
@@ -194,6 +221,9 @@ SEED = 20261016
 T0 = time.perf_counter()
 MAIN_FLAGS = ["-r", "16", "-j", "5k", "-e", "5k", "-l", "700,900,1100",
               "-t", "1"]
+# past this many seconds every thread's stack goes to stderr (the run is
+# cut at 1,200), so that a run that hangs says where
+WATCHDOG_S = 1100
 
 
 def fail(msg: str) -> None:
@@ -226,6 +256,90 @@ def smoothing_phases(log: str) -> list:
 def sha256(path: str) -> str:
     with open(path, "rb") as f:
         return hashlib.sha256(f.read()).hexdigest()
+
+
+CHILDREN = []               # subprocesses the smoke started in the
+                           # background, ended when it exits
+
+
+@atexit.register
+def _end_children() -> None:
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase(what: str) -> None:
+    """A phase's first line, on stderr too, so that the end of a cut run's
+    error stream says which phase it was in."""
+    say(what)
+    print(f"[smoke +{time.perf_counter() - T0:.0f}s] {what}", file=sys.stderr,
+          flush=True)
+
+
+# The plain versions are host-bound PyTorch loops of one CPU thread each;
+# the phases that hold kernels to them hand them, all at the phase's start,
+# to one pool of spawned workers and take the results when they need them,
+# so that the host's cores run them beside each other and beside the card
+PLAIN_WORKERS = 6
+PLAIN_PER = 5              # blocks a job of a whole-block batch
+PLAIN = {"poa_win": "smoothxg_tpu_torch.ops.poa_win:poa_win_reference",
+         "poa_code": "smoothxg_tpu_torch.ops.poa_code:poa_code_reference",
+         "poa_stacked":
+             "smoothxg_tpu_torch.ops.poa_stacked:poa_stacked_reference",
+         "poa_round": "smoothxg_tpu_torch.ops.poa_round:poa_round_reference",
+         "poa_batch": "smoothxg_tpu_torch.ops.poa_batch:poa_batch_reference"}
+
+
+def plain_pool():
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(max_workers=PLAIN_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+
+
+def run_plain(target: str, args) -> tuple:
+    """In a worker: the plain version `target` ("module:function") on
+    `args` (numpy arrays as CPU tensors), on one thread; returns its
+    outputs as numpy arrays and its seconds."""
+    import importlib
+
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    mod, name = target.split(":")
+    fn = getattr(importlib.import_module(mod), name)
+    args = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+            for a in args]
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return [x.numpy() for x in out], time.perf_counter() - t0
+
+
+def plain(pool, name: str, *args, per: int | None = None):
+    """Submits the plain version of kernel `name` (a key of PLAIN) on
+    `args` (CPU tensors travel as numpy arrays) to `pool`; returns a
+    function that waits for it and gives (its outputs as CPU tensors, its
+    seconds on one worker).  With `per`, the first four arguments are a
+    whole-block batch (seqs, slen, nseq, params), whose blocks the plain
+    version aligns one by one: it goes in jobs of `per` blocks, and their
+    outputs are joined (the seconds summed)."""
+    import numpy as np
+    parts = ([list(args)] if per is None else
+             [[x[a:a + per] for x in args[:4]] + list(args[4:])
+              for a in range(0, len(args[0]), per)])
+    futs = [pool.submit(run_plain, PLAIN[name],
+                        [a.numpy() if hasattr(a, "numpy") else a
+                         for a in part]) for part in parts]
+
+    def result():
+        import torch
+        outs = [f.result() for f in futs]
+        return ([torch.from_numpy(np.concatenate(xs))
+                 for xs in zip(*(o for o, _ in outs))],
+                sum(secs for _, secs in outs))
+    return result
 
 
 # int32 operations per DP cell that the fill recurrence needs: the
@@ -428,14 +542,14 @@ def time_full_card(torch, dev, kern, mkcaps, blk, p) -> float:
     return ms
 
 
-def kernel_phase(torch, dev, clock_mhz):
-    """Phase 3.  Returns the kernel's JSON entry fields and its timing
-    (block, ms, batch_ms) for phases 8 and 10."""
+def kernel_phase(torch, dev, clock_mhz, pool):
+    """Phase 3 (the plain versions in `pool`).  Returns the kernel's JSON
+    entry fields and its timing (block, ms, batch_ms) for phases 8 and
+    10."""
     import numpy as np
     from smoothxg_tpu_torch.ops.poa_engine import POAParams, TorchPOAEngine
     from smoothxg_tpu_torch.ops.poa_win import (WinCaps, pack_blocks,
-                                                poa_win, poa_win_reference,
-                                                row_stride)
+                                                poa_win, row_stride)
     from smoothxg_tpu_torch.testing.synth import make_block
     from smoothxg_tpu_torch.tools.time_chase import (PHASE3_PLAN,
                                                      phase3_blocks)
@@ -444,12 +558,27 @@ def kernel_phase(torch, dev, clock_mhz):
     tiers = TorchPOAEngine.TIERS
     n_blocks = n_cmp = 0
     max_err = 0
+    groups = []
     for (ti, local, banded, nb, _, _, _), blocks in zip(PHASE3_PLAN,
                                                          phase3_blocks(rng)):
         VW, LW, W = tiers[ti]
         p = POAParams(local=local, wb=311 if banded else -1)
-        ins = pack_blocks([(sq, p) for sq in blocks], LW)
-        caps = WinCaps(VW, LW, W, local, banded)
+        groups.append([ti, local, banded, nb, blocks, p,
+                       pack_blocks([(sq, p) for sq in blocks], LW),
+                       WinCaps(VW, LW, W, local, banded)])
+    # timing on a main-path block shape: 16 sequences of ~1 kb (-l 1100),
+    # the draw after phase 3's blocks (tools/time_chase.timing_block)
+    blk = make_block(rng, 1000, 16, 0.01)
+    p_t = POAParams(local=True)
+    cpu_ins = pack_blocks([(blk, p_t)], tiers[0][1])
+    caps_t = WinCaps(*tiers[0], True, False)
+    # the plan's last tiers hold its longest blocks: their jobs go first
+    want_t = plain(pool, "poa_win", *cpu_ins, caps_t)
+    for g in reversed(groups):
+        g.append(plain(pool, "poa_win", *g[6], g[7], per=PLAIN_PER))
+    # the kernel and the native engine on every group while the pool works
+    for g in groups:
+        ti, local, banded, nb, blocks, p, ins, caps, _ = g
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         before = torch.cuda.memory_allocated(dev)
@@ -457,10 +586,13 @@ def kernel_phase(torch, dev, clock_mhz):
         torch.cuda.synchronize()
         per_block = (torch.cuda.max_memory_allocated(dev) - before) / nb
         got = [x.cpu() for x in got]
-        want = poa_win_reference(*ins, caps)
-        max_err = max(max_err, hold_to_plain(
-            got, want, f"tier {ti} local={local} banded={banded}"))
         n_cmp += hold_to_native(native, blocks, p, got, f"tier {ti}")
+        g += [got, per_block]
+    for ti, local, banded, nb, blocks, p, ins, caps, want, got, per_block \
+            in groups:
+        VW, LW, W = caps.VW, caps.LW, caps.W
+        max_err = max(max_err, hold_to_plain(
+            got, want()[0], f"tier {ti} local={local} banded={banded}"))
         n_blocks += nb
         say(f"kernel tier V{VW}xL{LW}xW{W} local={local} banded={banded}: "
             f"{nb} blocks equal to the plain version, "
@@ -471,17 +603,10 @@ def kernel_phase(torch, dev, clock_mhz):
     if n_blocks < 200:
         fail(f"only {n_blocks} blocks compared")
 
-    # timing on a main-path block shape: 16 sequences of ~1 kb (-l 1100),
-    # the draw after phase 3's blocks (tools/time_chase.timing_block)
-    VW, LW, W = tiers[0]
-    p = POAParams(local=True)
-    blk = make_block(rng, 1000, 16, 0.01)
+    p, caps = p_t, caps_t
     one = [(blk, [1] * 16, p)]
-    cpu_ins = pack_blocks([(blk, p)], LW)
-    caps = WinCaps(VW, LW, W, True, False)
-    t0 = time.perf_counter()
-    want = poa_win_reference(*cpu_ins, caps)
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    want, plain_s = want_t()
+    plain_ms = plain_s * 1e3
     ins = [x.to(dev) for x in cpu_ins]
     ms, got = time_kernel(torch, poa_win, ins, caps)
     if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
@@ -525,13 +650,13 @@ def kernel_phase(torch, dev, clock_mhz):
              "full_ms": full_ms})
 
 
-def round_phase(torch, dev, clock_mhz):
-    """Phase 6.  Returns the round kernel's JSON entry fields."""
+def round_phase(torch, dev, clock_mhz, pool):
+    """Phase 6 (the plain versions in `pool`).  Returns the round kernel's
+    JSON entry fields."""
     import numpy as np
     from smoothxg_tpu_torch.ops import poa_host
     from smoothxg_tpu_torch.ops.poa_round import (decode_moves, pack_tasks,
-                                                  poa_round,
-                                                  poa_round_reference)
+                                                  poa_round)
     from smoothxg_tpu_torch.tools.time_chase import (round_groups,
                                                      round_timing_task)
     # the seeded plan (local and global, V up to ~4,000, L up to ~2,000),
@@ -544,13 +669,20 @@ def round_phase(torch, dev, clock_mhz):
     n_tasks = n_dec = max_err = 0
     degrees: set = set()
     vmax = lmax = 0
-    for local, tasks in groups:
-        ins, orders = pack_tasks(tasks)
+    jobs = [[local, tasks, *pack_tasks(tasks)] for local, tasks in groups]
+    # timing on a main-path task shape: a ~1 kb query against a graph of
+    # seven ~1 kb sequences (V ~ 1,200; tools/time_chase.round_timing_task)
+    task = round_timing_task(rng)
+    cpu_ins, _ = pack_tasks([task])
+    # the plan's last groups hold its longest tasks: their jobs go first
+    want_t = plain(pool, "poa_round", *cpu_ins, True)
+    for job in reversed(jobs):
+        job.append(plain(pool, "poa_round", *job[2], job[0]))
+    for local, tasks, ins, orders, want in jobs:
         got = poa_round(*(x.to(dev) for x in ins), local)
         torch.cuda.synchronize()
         got = [x.cpu() for x in got]
-        want = poa_round_reference(*ins, local)
-        for name, g, w in zip(("codes", "meta"), got, want):
+        for name, g, w in zip(("codes", "meta"), got, want()[0]):
             err = int((g.long() - w.long()).abs().max())
             max_err = max(max_err, err)
             if err:
@@ -577,13 +709,8 @@ def round_phase(torch, dev, clock_mhz):
     if not set(range(1, 9)) <= degrees or max(degrees) <= 8:
         fail(f"in-degrees covered: {sorted(degrees)}")
 
-    # timing on a main-path task shape: a ~1 kb query against a graph of
-    # seven ~1 kb sequences (V ~ 1,200; tools/time_chase.round_timing_task)
-    task = round_timing_task(rng)
-    cpu_ins, _ = pack_tasks([task])
-    t0 = time.perf_counter()
-    want = poa_round_reference(*cpu_ins, True)
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    want, plain_s = want_t()
+    plain_ms = plain_s * 1e3
     ins = [x.to(dev) for x in cpu_ins]
     poa_round(*ins, True)
     torch.cuda.synchronize()
@@ -663,28 +790,24 @@ def round_geometry_line(VW: int, LS: int, P: int) -> str:
             f"{used(rep)} registers, {spilled(rep)}")
 
 
-def chase_phase(torch, dev, clock_mhz, name: str, timing: dict):
+def chase_phase(torch, dev, clock_mhz, name: str, timing: dict, pool):
     """Phases 8 and 10: poa_code or poa_stacked against its plain version
-    and the native engine on >= 200 seeded blocks, then timed on phase 3's
-    block and on 132 copies of it, beside poa_win's times (`timing`).
-    Returns the kernel's JSON entry fields."""
+    (in `pool`) and the native engine on >= 200 seeded blocks, then timed
+    on phase 3's block and on 132 copies of it, beside poa_win's times
+    (`timing`).  Returns the kernel's JSON entry fields."""
     import numpy as np
-    from smoothxg_tpu_torch.ops.poa_code import (CodeCaps, poa_code,
-                                                 poa_code_reference)
+    from smoothxg_tpu_torch.ops.poa_code import CodeCaps, poa_code
     from smoothxg_tpu_torch.ops.poa_engine import POAParams, TorchPOAEngine
-    from smoothxg_tpu_torch.ops.poa_stacked import (poa_stacked,
-                                                    poa_stacked_reference,
-                                                    stacked_caps)
+    from smoothxg_tpu_torch.ops.poa_stacked import poa_stacked, stacked_caps
     from smoothxg_tpu_torch.ops.poa_win import pack_blocks, row_stride
     from smoothxg_tpu_torch.testing.synth import make_block, make_fan_in_block
     if name == "poa_code":
-        kern, ref, held, big = poa_code, poa_code_reference, 8, (8704, 4096)
+        kern, held, big = poa_code, 8, (8704, 4096)
 
         def mkcaps(VW, LW, local, banded):
             return CodeCaps(VW, LW, local, banded)
     else:
-        kern, ref, held, big = (poa_stacked, poa_stacked_reference, 4,
-                                (4352, 2048))
+        kern, held, big = poa_stacked, 4, (4352, 2048)
         mkcaps = stacked_caps
     rng = np.random.default_rng(SEED + (2 if name == "poa_code" else 3))
     native = TorchPOAEngine(device=dev).fallback
@@ -706,16 +829,23 @@ def chase_phase(torch, dev, clock_mhz, name: str, timing: dict):
     fans = [make_fan_in_block(rng, w, 60) for w in range(2, held + 2)]
     groups += [((1024, 512, True, -1), fans), ((1024, 512, False, -1), fans)]
     n_blocks = n_native = max_err = 0
-    for gi, ((VW, LW, local, wb), blocks) in enumerate(groups):
+    jobs = []
+    for (VW, LW, local, wb), blocks in groups:
         p = POAParams(local=local, wb=wb)
         ins = pack_blocks([(sq, p) for sq in blocks], LW)
         caps = mkcaps(VW, LW, local, wb >= 0)
+        jobs.append((blocks, p, ins, caps,
+                     plain(pool, name, *ins, caps, per=PLAIN_PER)))
+    blk = timing["block"]
+    cpu_ins = pack_blocks([(blk, POAParams(local=True))], 2048)
+    want_t = plain(pool, name, *cpu_ins, mkcaps(4352, 2048, True, False))
+    for gi, (blocks, p, ins, caps, want) in enumerate(jobs):
+        VW, LW, local, wb = caps.VW, caps.LW, p.local, p.wb
         got = kern(*(x.to(dev) for x in ins), caps)
         torch.cuda.synchronize()
         got = [x.cpu() for x in got]
-        want = ref(*ins, caps)
         label = f"{name} V{VW}xL{LW} local={local} wb={wb}"
-        max_err = max(max_err, hold_to_plain(got, want, label))
+        max_err = max(max_err, hold_to_plain(got, want()[0], label))
         n_native += hold_to_native(native, blocks, p, got, label)
         flags = got[0][:, 1].tolist()
         if gi >= len(plan) and flags != [0] * (held - 1) + [1]:
@@ -728,13 +858,10 @@ def chase_phase(torch, dev, clock_mhz, name: str, timing: dict):
     if n_blocks < 200:
         fail(f"only {n_blocks} blocks compared")
 
-    blk = timing["block"]
     p = POAParams(local=True)
-    cpu_ins = pack_blocks([(blk, p)], 2048)
     caps = mkcaps(4352, 2048, True, False)
-    t0 = time.perf_counter()
-    want = ref(*cpu_ins, caps)
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    want, plain_s = want_t()
+    plain_ms = plain_s * 1e3
     if int(want[0][0, 1]):
         fail(f"{name}: phase 3's timing block overflows")
     ins = [x.to(dev) for x in cpu_ins]
@@ -771,7 +898,8 @@ def chase_phase(torch, dev, clock_mhz, name: str, timing: dict):
 
 
 def block_main_path(tag: str, own: str, run, clock_mhz,
-                    depth: int | None = None) -> int:
+                    depth: int | None = None,
+                    records: list | None = None) -> int:
     """Phases 4, 9, 11 and 24: one run of the block engine's main path
     through `run` (returns (exit code, engine)), counted by `drive`; a spy
     on the engine's iterator keeps each block's sequences and final paths
@@ -782,10 +910,12 @@ def block_main_path(tag: str, own: str, run, clock_mhz,
     tier, the native engine after a launch (redone), the native engine
     otherwise: no tier, or stolen), with their share of the DP cells (L0 x
     L summed over the rounds), beside the pipeline's engine, rehydrate and
-    finalize seconds.  Returns the kernel's launches."""
+    finalize seconds (depth 0: every block).  `records` receives the spy's
+    (sequences, paths, local, kind, tier, params) of every block.  Returns
+    the kernel's launches."""
     from smoothxg_tpu_torch.ops.poa_engine import TorchPOAEngine
     from smoothxg_tpu_torch.ops.poa_win import stride_for
-    seen = []                 # (sequences, paths, local, kind, tier)
+    seen = []                 # (sequences, paths, local, kind, tier, params)
     tiers: dict = {}          # id(sequences) -> the tier it launched on
     it = TorchPOAEngine.poa_block_batch_iter
 
@@ -795,11 +925,14 @@ def block_main_path(tag: str, own: str, run, clock_mhz,
             sq = blocks[i][0]
             seen.append((sq, payload[3] if kind == "raw" else
                          payload.seq_paths, blocks[i][2].local, kind,
-                         tiers.get(id(sq))))
+                         tiers.get(id(sq)), blocks[i][2]))
             yield i, kind, payload
 
-    # each launch's geometry, counted by kind
+    # each launch's geometry, counted by kind, and its bytes on the card as
+    # _tier_batch counts them: DP scratch at the launch's row stride and
+    # the sequence and path planes at its depth
     geos: dict = {}
+    sizes = []                # (bytes, blocks, tier) a launch
     launch = TorchPOAEngine._launch
 
     def launch_spy(self, blocks, chunk, ti, local, banded):
@@ -807,10 +940,14 @@ def block_main_path(tag: str, own: str, run, clock_mhz,
         for i in chunk:
             tiers[id(blocks[i][0])] = ti
         VW, LW, W = self.tiers[ti]
-        line = geometry_line(own, len(chunk),
-                             self._kernel(VW, LW, W, local, banded)[1],
+        kern = self._kernel(VW, LW, W, local, banded)
+        line = geometry_line(own, len(chunk), kern[1],
                              stride_for(out[-1], LW))
         geos[line] = geos.get(line, 0) + 1
+        depth = max(len(blocks[i][0]) for i in chunk)
+        sizes.append((len(chunk) * (4 * kern[2](stride_for(out[-1], LW))
+                                    + self.PLANE_BYTES * depth * LW),
+                      len(chunk), self.tiers[ti]))
         return out
 
     TorchPOAEngine.poa_block_batch_iter = it_spy
@@ -829,7 +966,7 @@ def block_main_path(tag: str, own: str, run, clock_mhz,
     st = engine.stats()
     total = st["device_blocks"] + st["fallbacks"] + st["redo"] + \
         st["stolen"]
-    work = [(*win_dp_work(sq, pth), local) for sq, pth, local, _, _ in seen]
+    work = [(*win_dp_work(sq, pth), local) for sq, pth, local, *_ in seen]
     cells, pcells = (sum(w[i] for w in work) for i in (0, 1))
     bound = int32_bound_ms(sum(fill_ops(*w) for w in work), clock_mhz)
     say(f"{tag}: {wall:.2f} s wall, {total} blocks, "
@@ -844,15 +981,25 @@ def block_main_path(tag: str, own: str, run, clock_mhz,
     if geos:
         say(f"{tag} launch geometry: " + "; ".join(
             f"{n} x [{line}]" for line, n in geos.items()))
+        big = max(sizes)
+        say(f"{tag} launch bytes: the largest {big[0] / 1e9:.3f} GB ({big[1]}"
+            f" blocks at V{big[2][0]}xL{big[2][1]}xW{big[2][2]}) of the "
+            f"{TorchPOAEngine.SCRATCH_BUDGET / 2**30:.0f} GiB budget; by "
+            f"launch " + ", ".join(f"{b / 1e9:.3f}" for b, _, _ in sizes))
+        if big[0] > TorchPOAEngine.SCRATCH_BUDGET and big[1] > 1:
+            fail(f"{tag}: a launch of {big[1]} blocks passes the budget")
     if st["device_blocks"] < 0.9 * total:
         fail(f"{tag}: only {st['device_blocks']}/{total} blocks ran on "
              f"the GPU")
+    if records is not None:
+        records.extend(seen)
     return launches
 
 
 def depth_line(seen, depth: int, tiers) -> str:
     """Where the blocks of more than `depth` sequences ran, of the spy's
-    (sequences, paths, local, kind, tier) records, and their DP cells."""
+    (sequences, paths, local, kind, tier, params) records, and their DP
+    cells."""
     import collections
     import statistics
 
@@ -868,7 +1015,9 @@ def depth_line(seen, depth: int, tiers) -> str:
     dev_cells = sum(cells(r[0]) for r in seen if r[3] == "raw")
     depths = [len(r[0]) for r in deep] or [0]
     deep_cells = sum(cells(r[0]) for r in deep)
-    return (f"{len(deep)} of {len(seen)} blocks past {depth} sequences "
+    which = (f"{len(deep)} of {len(seen)} blocks past {depth} sequences"
+             if depth else f"all {len(seen)} blocks")
+    return (f"{which} "
             f"(depth {min(depths)}-{max(depths)}, median "
             f"{statistics.median(depths)}, {deep_cells / all_cells:.3f} of "
             f"the DP cells): "
@@ -887,11 +1036,12 @@ def smooth_times(log: str) -> list:
 
 def same_bytes(tag: str, out: str, maf: str, ref_out: str,
                ref_maf: str) -> None:
-    """GFA and MAF sha256 of a port run against phase 5's native run."""
+    """GFA and MAF sha256 of a port run against a native run's (the JAX
+    package's CLI with --engine native at the same flags)."""
     same = sha256(out) == sha256(ref_out) and sha256(maf) == sha256(ref_maf)
     say(f"{tag} identity: GFA sha256 {sha256(out)[:16]} vs "
         f"{sha256(ref_out)[:16]}, MAF sha256 {sha256(maf)[:16]} vs "
-        f"{sha256(ref_maf)[:16]} (--engine native, phase 5)")
+        f"{sha256(ref_maf)[:16]} (the JAX package's --engine native)")
     if not same:
         fail(f"{tag} output differs from the native engine's")
 
@@ -981,16 +1131,14 @@ def probe_phase(torch, dev, clock_mhz):
 STAGE_COPIES = 132             # one POA block per SM
 
 
-def stage_phase(torch, dev, timing: dict) -> None:
+def stage_phase(torch, dev, timing: dict, pool) -> None:
     """Phase 13: the profiling stages of poa_code (0-7) and poa_stacked
-    (0-2) on phase 3's timing block and on STAGE_COPIES copies of it."""
-    from smoothxg_tpu_torch.ops.poa_code import (STAGES, CodeCaps, poa_code,
-                                                 poa_code_reference)
+    (0-2) on phase 3's timing block and on STAGE_COPIES copies of it
+    (stages 1 and 2 held to their plain versions, in `pool`)."""
+    from smoothxg_tpu_torch.ops.poa_code import STAGES, CodeCaps, poa_code
     from smoothxg_tpu_torch.ops.poa_engine import POAParams
     from smoothxg_tpu_torch.ops.poa_stacked import STAGES as STK_STAGES
-    from smoothxg_tpu_torch.ops.poa_stacked import (poa_stacked,
-                                                    poa_stacked_reference,
-                                                    stacked_caps)
+    from smoothxg_tpu_torch.ops.poa_stacked import poa_stacked, stacked_caps
     from smoothxg_tpu_torch.ops.poa_win import pack_blocks, row_stride
     from smoothxg_tpu_torch.tools.profile_fused import (format_split,
                                                         time_stages)
@@ -999,20 +1147,22 @@ def stage_phase(torch, dev, timing: dict) -> None:
     ins = [x.to(dev) for x in cpu_ins]
     insB = [x.repeat((STAGE_COPIES,) + (1,) * (x.dim() - 1)).contiguous()
             for x in ins]
+    kernels = (("poa_code", poa_code, CodeCaps(4352, 2048, True, False),
+                STAGES),
+               ("poa_stacked", poa_stacked,
+                stacked_caps(4352, 2048, True, False), STK_STAGES))
+    want = {(name, st): plain(pool, name, *cpu_ins, caps, st)
+            for name, _, caps, _ in kernels for st in (1, 2)}
 
     def run():
-        for name, kern, ref, caps, stages in (
-                ("poa_code", poa_code, poa_code_reference,
-                 CodeCaps(4352, 2048, True, False), STAGES),
-                ("poa_stacked", poa_stacked, poa_stacked_reference,
-                 stacked_caps(4352, 2048, True, False), STK_STAGES)):
+        for name, kern, caps, stages in kernels:
             got = [x.cpu() for x in kern(*ins, caps, stage=0)]
             if not all(torch.equal(g, w) for g, w in
                        zip(got, timing[f"{name}_out"])):
                 fail(f"{name} stage 0 != its phase 8 / 10 outputs")
             for st in (1, 2):
                 got = [x.cpu() for x in kern(*ins, caps, stage=st)]
-                hold_to_plain(got, ref(*cpu_ins, caps, st),
+                hold_to_plain(got, want[name, st]()[0],
                               f"{name} stage {st}")
                 gotB = kern(*insB, caps, stage=st)
                 if not all(torch.equal(g.cpu(), w.repeat(
@@ -1398,21 +1548,39 @@ def hold_minhash(torch, mc, codes, lens, k: int, label: str):
     return hs, counts, ref
 
 
-def split_phase(torch, dev, clock_mhz, n_blocks=200, n_pairs=240,
+def ident_mirror(pairs):
+    """The numpy mirror's (score, matches, mismatches, gaps) of each pair,
+    in a worker of the smoke's pool."""
+    import numpy as np
+    from smoothxg_tpu_torch.ops.ident_cuda import host_banded_identity
+    return np.array([host_banded_identity(a, b, return_counts=True)
+                     for a, b in pairs])
+
+
+def split_phase(torch, dev, clock_mhz, pool, n_blocks=200, n_pairs=240,
                 long_pairs=(46_400, 47_000), deep=512):
     """Phase 15: the hash step and the intersections of csrc/minhash.cu
     (each in both routes) and ident (csrc/ident.cu) against their plain
-    versions on the card and the numpy mirrors on seeded blocks and pairs,
-    exact; then timed on a deep block.  Returns the kernels' JSON entry
-    fields."""
+    versions on the card and the numpy mirrors on seeded blocks and pairs
+    (ident's in `pool`, from the phase's start), exact; then timed on a
+    deep block.  Returns the kernels' JSON entry fields."""
     import numpy as np
     from smoothxg_tpu_torch.ops import ident_cuda as ic
     from smoothxg_tpu_torch.ops import minhash_cuda as mc
     from smoothxg_tpu_torch.tools.time_minhash import bounds, long_block
     rng = np.random.default_rng(SEED + 15)
+    blocks = list(minhash_blocks(rng, n_blocks))
+    pairs, ms = ident_pairs(rng, n_pairs)
+    longs = []
+    for L in long_pairs:
+        a = _seq(rng, L)
+        longs.append((a, _mutate(rng, a, 0.01)))
+    mirrors = [pool.submit(ident_mirror, pairs[i:i + 40])
+               for i in range(0, len(pairs), 40)]
+    long_mirrors = [pool.submit(ident_mirror, [pair]) for pair in longs]
     t0 = time.perf_counter()
     n_hash = n_pairs_mh = 0
-    for b, seqs in enumerate(minhash_blocks(rng, n_blocks)):
+    for b, seqs in enumerate(blocks):
         k = 16 if b % 4 else 11
         codes, lens = (torch.from_numpy(a).to(dev)
                        for a in mc.encode_batch(seqs))
@@ -1455,14 +1623,12 @@ def split_phase(torch, dev, clock_mhz, n_blocks=200, n_pairs=240,
             f"numpy mirror")
     say(f"minhash long-row cases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    pairs, ms = ident_pairs(rng, n_pairs)
     packed = ic.pack_pairs([ic._prep_pair(a, b) for a, b in pairs])
     ins = [packed[n].to(dev) for n in ("a", "aoff", "la", "b", "boff", "lb")]
     got = ic.ident_counts(*ins)
     if not torch.equal(got, ic.ident_counts_reference(*ins)):
         fail("ident != plain version")
-    mirror = np.array([ic.host_banded_identity(a, b, return_counts=True)
-                       for a, b in pairs])
+    mirror = np.concatenate([m.result() for m in mirrors])
     if not np.array_equal(got.cpu().numpy(), mirror):
         fail("ident != the numpy mirror")
     idents = ic.DeviceBandedIdentity(device=dev).identities(pairs, ms)
@@ -1483,15 +1649,10 @@ def split_phase(torch, dev, clock_mhz, n_blocks=200, n_pairs=240,
         f"equal to the plain version at 32 (warp kernel) and 288 (block "
         f"kernel), {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    longs = []
-    for L in long_pairs:
-        a = _seq(rng, L)
-        longs.append((a, _mutate(rng, a, 0.01)))
     packed = ic.pack_pairs([ic._prep_pair(a, b) for a, b in longs])
     got = ic.ident_counts(*(packed[n].to(dev) for n in
                             ("a", "aoff", "la", "b", "boff", "lb")))
-    mirror = np.array([ic.host_banded_identity(a, b, return_counts=True)
-                       for a, b in longs])
+    mirror = np.concatenate([m.result() for m in long_mirrors])
     if not np.array_equal(got.cpu().numpy(), mirror):
         fail("ident != the numpy mirror on the pairs past 46,340 bp")
     say(f"ident: pairs of {[max(len(a), len(b)) for a, b in longs]} bp "
@@ -1777,14 +1938,14 @@ def batch_geometry_line(B: int, Vp: int, Lp: int, P: int) -> str:
             f"{spilled(rep)}")
 
 
-def batch_phase(torch, dev, clock_mhz):
-    """Phase 17.  Returns the batch kernel's JSON entry fields."""
+def batch_phase(torch, dev, clock_mhz, pool):
+    """Phase 17 (the plain versions in `pool`).  Returns the batch
+    kernel's JSON entry fields."""
     import collections
 
     import numpy as np
     from smoothxg_tpu_torch.ops.poa_batch import (geometry, pack_tasks,
-                                                  poa_batch,
-                                                  poa_batch_reference)
+                                                  poa_batch)
     from smoothxg_tpu_torch.tools.ring_reach import count_batch
     from smoothxg_tpu_torch.tools.time_chase import round_timing_task
     rng = np.random.default_rng(SEED + 4)
@@ -1793,14 +1954,20 @@ def batch_phase(torch, dev, clock_mhz):
     routes: set = set()
     reach: collections.Counter = collections.Counter()
     vmax = lmax = 0
-    for local, P, tasks in batch_groups(rng):
-        ins, _ = pack_tasks(tasks, P)
+    jobs = [[local, tasks, pack_tasks(tasks, P)[0]]
+            for local, P, tasks in batch_groups(rng)]
+    # timing on phase 6's main-path task shape (V ~1,200, L ~1,000)
+    task = round_timing_task()
+    cpu_ins, _ = pack_tasks([task])
+    # the plan's last groups hold its longest tasks: their jobs go first
+    want_t = plain(pool, "poa_batch", *cpu_ins, True)
+    for job in reversed(jobs):
+        job.append(plain(pool, "poa_batch", *job[2], job[0]))
+    for local, tasks, ins, fut in jobs:
         got = poa_batch(*(x.to(dev) for x in ins), local)
         torch.cuda.synchronize()
         got = [x.cpu() for x in got]
-        t0 = time.perf_counter()
-        want = poa_batch_reference(*ins, local)
-        plain_s = time.perf_counter() - t0
+        want, plain_s = fut()
         for name, g, w in zip(("out", "outpos", "bv"), got, want):
             err = int((g.long() - w.long()).abs().max())
             max_err = max(max_err, err)
@@ -1824,7 +1991,7 @@ def batch_phase(torch, dev, clock_mhz):
         say(f"batch kernel local={local} P={Pk}: {len(tasks)} "
             f"tasks (V up to {Vp}, L up to {Lp}, predecessors up to "
             f"{max(hist)} rows back) equal to the plain version "
-            f"({plain_s:.1f} s); geometry "
+            f"({plain_s:.1f} s on one worker); geometry "
             + batch_geometry_line(len(tasks), Vp, Lp, Pk))
     if n_tasks < 200:
         fail(f"only {n_tasks} batch tasks compared")
@@ -1839,14 +2006,10 @@ def batch_phase(torch, dev, clock_mhz):
         f"{far} of {sum(reach.values())} predecessor reads past the ring "
         f"(8+ rows back, from device memory)")
 
-    # timing on phase 6's main-path task shape (V ~1,200, L ~1,000)
-    task = round_timing_task()
-    cpu_ins, _ = pack_tasks([task])
     Vp, Lp, Pk = (cpu_ins[0].shape[0], cpu_ins[2].shape[1],
                   cpu_ins[1].shape[2])
-    t0 = time.perf_counter()
-    want = poa_batch_reference(*cpu_ins, True)
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    want, plain_s = want_t()
+    plain_ms = plain_s * 1e3
     ins = [x.to(dev) for x in cpu_ins]
     ms = cuda_ms(torch, lambda: poa_batch(*ins, True), reps=5)
     got = poa_batch(*ins, True)
@@ -2322,15 +2485,20 @@ def steal_phase(torch, dev) -> None:
         f"cells/s a worker")
 
 
+SANITIZE_TIMEOUT = 240      # seconds a sanitizer's child process may take
+
+
 def sanitize_phase() -> None:
     """Phase 23: tools/sanitize.py's card part, its harness in child
-    processes (the four compute-sanitizer tools at once, then the guard
-    allocator); fails on any report outside tools/sanitize.EXPECTED, a
-    guard band written or an entry unequal to its plain version."""
+    processes (the four compute-sanitizer tools and the guard allocator
+    at once, each killed past SANITIZE_TIMEOUT); fails on any report
+    outside tools/sanitize.EXPECTED, a guard band written, an entry
+    unequal to its plain version or a child that ran out of time."""
     from smoothxg_tpu_torch.tools import sanitize
     t0 = time.perf_counter()
     res = sanitize.run_card(echo=say,
-                            log_dir=os.path.join(SMOKE_DIR, "sanitize"))
+                            log_dir=os.path.join(SMOKE_DIR, "sanitize"),
+                            timeout=SANITIZE_TIMEOUT)
     ran = [r["tool"] for r in res["tools"] if r["supported"]]
     say(f"sanitizers: {time.perf_counter() - t0:.1f} s; compute-sanitizer "
         f"{res['version']} ({res['path']}) ran {len(ran)} of "
@@ -2353,54 +2521,52 @@ DEEP_LEN = 100               # their bases (the plain versions' time)
 DEEP_KERNELS = ("poa_win", "poa_code", "poa_stacked")
 
 
-def plain_outputs(name: str, ins, caps) -> tuple:
-    """A whole-block kernel's plain version on numpy inputs, in a worker
-    process of phase 24's pool (one thread); returns its numpy outputs
-    and its seconds."""
-    import torch
-    from smoothxg_tpu_torch.ops.poa_code import poa_code_reference
-    from smoothxg_tpu_torch.ops.poa_stacked import poa_stacked_reference
-    from smoothxg_tpu_torch.ops.poa_win import poa_win_reference
-    torch.set_num_threads(1)
-    ref = {"poa_win": poa_win_reference, "poa_code": poa_code_reference,
-           "poa_stacked": poa_stacked_reference}[name]
-    t0 = time.perf_counter()
-    out = ref(*(torch.from_numpy(x) for x in ins), caps)
-    return [x.numpy() for x in out], time.perf_counter() - t0
-
-
-def deep_kernels_phase(torch, dev, pool) -> None:
-    """Phase 24 (a): blocks of 64 and 96 sequences (make_block's copies,
+def deep_groups(pool) -> list:
+    """Phase 24 (a)'s blocks of 64 and 96 sequences (make_block's copies,
     each with its own indels, and make_population_block's, copies of 8
-    founders) through the three whole-block kernels at the bulk tier
-    (4352, 2048), local, at the predecessor slots the engine launches
-    them with, each equal to its plain version (run in `pool`'s worker
-    processes meanwhile) and every block it did not flag to the native
-    engine; poa_win also at the TPU's 4 predecessor slots, to count what
-    they flag, with each block's native V and in-degree."""
-    import dataclasses
-
+    founders), packed at the bulk tier (4352, 2048), local, with each
+    whole-block kernel's plain version on them submitted to `pool` a
+    block a job: [(sequences, blocks, inputs, {kernel: result})]."""
     import numpy as np
-    from smoothxg_tpu_torch.ops.poa_engine import POAParams, TorchPOAEngine
-    from smoothxg_tpu_torch.ops.poa_win import pack_blocks, row_stride
+    from smoothxg_tpu_torch.ops.poa_engine import POAParams
+    from smoothxg_tpu_torch.ops.poa_win import pack_blocks
     from smoothxg_tpu_torch.testing.synth import (make_block,
                                                   make_population_block)
+    from smoothxg_tpu_torch.tools.time_chase import CAPS, block_kernel
+    p = POAParams(local=True)
+    groups = []
+    for n in DEEP_SEQS:
+        rng = np.random.default_rng(SEED + 24 + n)
+        blocks = [make_block(rng, DEEP_LEN, n, 0.01),
+                  make_population_block(rng, DEEP_LEN, n, 0.01)]
+        ins = pack_blocks([(sq, p) for sq in blocks], CAPS[1])
+        groups.append((n, blocks, ins, {
+            name: plain(pool, name, *ins, block_kernel(name)[1](*CAPS),
+                        per=1) for name in DEEP_KERNELS}))
+    return groups
+
+
+def deep_kernels_phase(torch, dev, groups) -> None:
+    """Phase 24 (a): deep_groups' blocks through the three whole-block
+    kernels at the bulk tier (4352, 2048), local, at the predecessor slots
+    the engine launches them with, each equal to its plain version (run
+    in a pool's worker processes meanwhile) and every block it did not
+    flag to the native engine; poa_win also at the TPU's 4 predecessor
+    slots, to count what they flag, with each block's native V and
+    in-degree."""
+    import dataclasses
+
+    from smoothxg_tpu_torch.ops.poa_engine import POAParams, TorchPOAEngine
+    from smoothxg_tpu_torch.ops.poa_win import row_stride
     from smoothxg_tpu_torch.tools.time_chase import CAPS, block_kernel
     kern = {name: block_kernel(name) for name in DEEP_KERNELS}
     caps = {name: mk(*CAPS) for name, (_, mk) in kern.items()}
     native = TorchPOAEngine(device=dev).fallback
     p = POAParams(local=True)
-    groups = []
-    for n in DEEP_SEQS:
-        rng = np.random.default_rng(SEED + 24 + n)
-        groups.append((n, [make_block(rng, DEEP_LEN, n, 0.01),
-                           make_population_block(rng, DEEP_LEN, n, 0.01)]))
     runs = []
-    for n, blocks in groups:
-        ins = pack_blocks([(sq, p) for sq in blocks], CAPS[1])
+    for n, blocks, ins, futs in groups:
         for name in DEEP_KERNELS:
-            fut = pool.submit(plain_outputs, name,
-                              [x.numpy() for x in ins], caps[name])
+            fut = futs[name]
             got = kern[name][0](*(x.to(dev) for x in ins), caps[name])
             torch.cuda.synchronize()
             runs.append((n, blocks, ins, name, fut,
@@ -2424,7 +2590,7 @@ def deep_kernels_phase(torch, dev, pool) -> None:
             f"{len(blocks)}")
     flagged: dict = {}
     for n, blocks, ins, name, fut, got in runs:
-        want = [torch.from_numpy(x) for x in fut.result()[0]]
+        want = fut()[0]
         label = f"{name} deep {n}"
         err = hold_to_plain(got, want, label)
         n_nat = hold_to_native(native, blocks, p, got, label)
@@ -2442,19 +2608,16 @@ def deep_kernels_phase(torch, dev, pool) -> None:
 
 
 def deep_plain(pool) -> dict:
-    """Phase 24 (c), submitted first (the longest jobs of `pool`): each
-    whole-block kernel's plain version on the deep timing block, all 96
-    sequences of tools/time_chase.deep_block."""
+    """Phase 24 (c), submitted when phase 23 starts (the longest jobs of
+    `pool`): each whole-block kernel's plain version on the deep timing
+    block, all 96 sequences of tools/time_chase.deep_block."""
     from smoothxg_tpu_torch.ops.poa_engine import POAParams
     from smoothxg_tpu_torch.ops.poa_win import pack_blocks
     from smoothxg_tpu_torch.tools import time_chase
-    ins = [x.numpy() for x in pack_blocks(
-        [(time_chase.deep_block(), POAParams(local=True))],
-        time_chase.CAPS[1])]
-    return {name: pool.submit(plain_outputs, name, ins,
-                              time_chase.block_kernel(name)[1](
-                                  *time_chase.CAPS))
-            for name in DEEP_KERNELS}
+    ins = pack_blocks([(time_chase.deep_block(), POAParams(local=True))],
+                      time_chase.CAPS[1])
+    return {name: plain(pool, name, *ins, time_chase.block_kernel(name)[1](
+        *time_chase.CAPS)) for name in DEEP_KERNELS}
 
 
 def hold_deep_plain(torch, dev, got: dict, plain: dict) -> None:
@@ -2468,10 +2631,9 @@ def hold_deep_plain(torch, dev, got: dict, plain: dict) -> None:
     native = TorchPOAEngine(device=dev).fallback
     t0 = time.perf_counter()
     for name in DEEP_KERNELS:
-        out, plain_s = plain[name].result()
+        out, plain_s = plain[name]()
         label = f"{name} deep timing block (R {len(deep)})"
-        err = hold_to_plain(got[name], [torch.from_numpy(x) for x in out],
-                            label)
+        err = hold_to_plain(got[name], out, label)
         n_nat = hold_to_native(native, [deep], p, got[name], label)
         say(f"{label}: equal to the plain version (max abs err {err}; "
             f"plain version {plain_s:.1f} s on one worker), {n_nat} of 1 "
@@ -2519,22 +2681,16 @@ def deep_timing_phase(torch, dev, clock_mhz) -> dict:
     return outs
 
 
-def deep_phase(torch, dev, clock_mhz) -> None:
+def deep_phase(torch, dev, clock_mhz, pool, plain: dict) -> None:
     """Phase 24: deep blocks through the three whole-block kernels, then
     the fused CLI on the 90 x 80 kb pangenome at -t 1 (bytes equal to the
     JAX package's --engine native run, started in a subprocess first)
     and at -t 4 -l 700 in one rank.  The plain versions run meanwhile in
-    a pool of spawned workers, shut down before the -t 4 run."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
+    `pool`, the deep timing block's already (`plain`, deep_plain's)."""
     from smoothxg_tpu_torch import cli
     from smoothxg_tpu_torch.testing.synth import write_pangenome
     from smoothxg_tpu_torch.utils import procpool
     t0 = time.perf_counter()
-    pool = ProcessPoolExecutor(
-        max_workers=len(DEEP_SEQS) * len(DEEP_KERNELS),
-        mp_context=multiprocessing.get_context("spawn"))
     gfa = write_pangenome(os.path.join(SMOKE_DIR, "deep.gfa"),
                           haplotypes=DEEP_HAPS, length=80_000, seed=SEED)
     out, maf, ref_out, ref_maf = (
@@ -2547,8 +2703,7 @@ def deep_phase(torch, dev, clock_mhz) -> None:
             cwd=HERE, env=dict(os.environ, JAX_PLATFORMS="cpu"),
             stdout=ref_log, stderr=subprocess.STDOUT)
         try:
-            plain = deep_plain(pool)
-            deep_kernels_phase(torch, dev, pool)
+            deep_kernels_phase(torch, dev, deep_groups(pool))
             torch.cuda.empty_cache()
             got = deep_timing_phase(torch, dev, clock_mhz)
             torch.cuda.empty_cache()
@@ -2559,7 +2714,6 @@ def deep_phase(torch, dev, clock_mhz) -> None:
             hold_deep_plain(torch, dev, got, plain)
             rc = ref.wait(timeout=900)
         finally:
-            pool.shutdown(cancel_futures=True)
             if ref.poll() is None:
                 ref.kill()
                 ref.wait()
@@ -2580,80 +2734,202 @@ def deep_phase(torch, dev, clock_mhz) -> None:
     say(f"deep phase: {time.perf_counter() - t0:.1f} s")
 
 
-def engine_run(gfa: str, out: str, maf: str, engine):
-    """The main path through the API with a pre-built engine:
-    run_smoothing(config_from_args(<the CLI's flags>), engine=engine)."""
-    from smoothxg_tpu_torch import cli
-    from smoothxg_tpu_torch.pipeline.run import run_smoothing
-    args = cli.build_parser().parse_args(["-g", gfa, "-o", out, "-m", maf,
-                                          *MAIN_FLAGS])
-    cfg = cli.config_from_args(args, add_consensus=not args.vanish_consensus)
-    return lambda: (0, run_smoothing(cfg, engine=engine)[2])
+# phase 25: the CLI's default -l 4000 (ranges cut at 2 x 4000 bp, padded
+# by 311 a side: sequences of up to 8,622 bp) on phase 4's pangenome, at
+# the default --long-poa-band and at 0 (the reference's full-width
+# semantics), on the tiers re-derived for the card
+LONG_FLAGS = ["-j", "5k", "-e", "5k", "-l", "4000", "-t", "1"]
+LONG_BANDS = ("4k", "0")
+LONG_LW = 8704         # the sequence capacity of the tiers that take them
+LONG_CUT = 3           # sequences a long block keeps for the plain versions
+LONG_KERNELS = ("poa_win", "poa_stacked")
 
 
-def main() -> None:
-    try:
-        import torch
-    except ImportError:
-        fail("PyTorch is not installed")
-    if not torch.cuda.is_available():
-        fail("CUDA is not available: this smoke test needs an NVIDIA GPU")
-    if not os.path.isdir(os.path.join(HERE, "smoothxg_tpu_torch")):
-        fail("smoothxg_tpu_torch not found: run from a checkout of the repo")
-    sys.path.insert(0, HERE)
-    dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()
-    smi = smi[0] if smi else "nvidia-smi: no output"
-    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True,
-                         timeout=60).stdout.split()
-    try:
-        clock_mhz = float(clk[0])
-    except (IndexError, ValueError):
-        fail(f"nvidia-smi gave no max SM clock: {clk}")
-    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.split()
-    say(f"device: {kind} ({smi}, max SM clock {clock_mhz:.0f} MHz, compute "
-        f"mode {','.join(mode) or '?'}), torch {torch.__version__}, cuda "
-        f"{torch.version.cuda}, count {torch.cuda.device_count()}")
+def long_cut(sq) -> list:
+    """A long block cut to LONG_CUT sequences for the plain versions: the
+    first ones and the shortest, so that a banded block keeps its length
+    spread."""
+    keep = list(range(LONG_CUT - 1))
+    keep.append(min(range(LONG_CUT - 1, len(sq)), key=lambda r: len(sq[r])))
+    return [sq[r] for r in keep]
 
-    from smoothxg_tpu_torch.ops import _build
+
+def long_kernels(torch, dev, pool, picks: dict) -> None:
+    """Phase 25 (b): one long block of each variant at its tier of LW
+    LONG_LW (the full-width block of the most DP cells at band 0, the
+    banded block of the most at the default band, whose window passed the
+    windowed tier), cut to LONG_CUT sequences, through poa_win and
+    poa_stacked on the card, each equal to its plain version (run in
+    `pool`) and to the native engine; each kernel's time on the cut
+    block."""
     from smoothxg_tpu_torch.ops.poa_engine import TorchPOAEngine
-    t0 = time.perf_counter()
-    _build.load()
-    t_cuda = time.perf_counter() - t0
-    say(f"build: CUDA kernels, one nvcc per source for sm_90a started "
-        f"together and one link, {t_cuda:.2f} s ({_build.lib_path()}); "
-        + build_summary(_build.build_log["ptxas"]))
-    # the port's host C++ libraries build with g++ at first use; build
-    # them here so the main paths' walls are not charged for them
-    for name in _build.HOST_NAMES:
-        if _build.host_lib(name) is None:
-            fail(f"g++ build of csrc/host/{name}.cpp failed")
-    say(f"build: the port's host libraries from csrc/host/ with g++: "
-        + ", ".join(f"{n} {t:.2f} s" for n, t in
-                    _build.host_build_log.items()))
-    t0 = time.perf_counter()
-    res = subprocess.run(["make", "-C", os.path.join(HERE, "native")],
-                         capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        fail(f"native build failed: {res.stderr[-800:]}")
-    say(f"build: the JAX package's native/ libraries with make, "
-        f"{time.perf_counter() - t0:.2f} s, for the identity phase's "
-        f"reference subprocess only (the port never loads them)")
+    from smoothxg_tpu_torch.ops.poa_win import pack_blocks, row_stride
+    from smoothxg_tpu_torch.tools.time_chase import block_kernel
+    native = TorchPOAEngine(device=dev).fallback
+    jobs = []
+    for variant, (sq, p, (VW, LW, _)) in picks.items():
+        cut = long_cut(sq)
+        ins = pack_blocks([(cut, p)], LW)
+        for name in LONG_KERNELS:
+            kern, mkcaps = block_kernel(name)
+            caps = mkcaps(VW, LW, p.local, p.wb >= 0)
+            fut = plain(pool, name, *ins, caps)
+            dins = [x.to(dev) for x in ins]
+            ms, got = time_kernel(torch, kern, dins, caps, reps=1)
+            jobs.append((variant, name, cut, p, caps, ins, fut, ms,
+                         [x.cpu() for x in got]))
+    for variant, name, cut, p, caps, ins, fut, ms, got in jobs:
+        out, plain_s = fut()
+        VW, LW = caps.VW, caps.LW
+        label = f"{name} long block ({variant}, {len(cut)} sequences)"
+        if int(got[0][0, 1]):
+            fail(f"{label}: flagged at V{VW}xL{LW}")
+        err = hold_to_plain(got, out, label)
+        n_nat = hold_to_native(native, [cut], p, got, label)
+        say(f"{label} of {min(map(len, cut))}-{max(map(len, cut))} bases at "
+            f"V{VW}xL{LW}: V {int(got[0][0, 0])}, equal to the plain version "
+            f"(max abs err {err}, tolerance 0; plain version {plain_s:.1f} "
+            f"s on one worker), {n_nat} of 1 equal to native; kernel "
+            f"{ms:.3f} ms; geometry " + geometry_line(
+                name, 1, caps, row_stride(ins[1], LW)))
 
-    entries = {}
-    entries["poa_win"], timing = kernel_phase(torch, dev, clock_mhz)
-    torch.cuda.empty_cache()
 
+def long_phase(torch, dev, clock_mhz, gfa: str, pool,
+               haps: int = 16) -> None:
+    """Phase 25: the fused CLI at -r `haps` and LONG_FLAGS on `gfa` (a
+    generator pangenome of `haps` haplotypes) once for each of LONG_BANDS,
+    each run into its own directory: every block on the
+    kernel apart from overflow redos (a block that ran natively without a
+    launch fails the phase), the blocks by tier, the device share of
+    blocks and DP cells, the engine, rehydrate and finalize seconds; GFA
+    and MAF sha256 equal to the JAX package's CLI with --engine native at
+    the same flags (subprocesses started when the phase starts); then the
+    long blocks through the kernels (long_kernels, the plain versions in
+    `pool`)."""
     from smoothxg_tpu_torch import cli
+    from smoothxg_tpu_torch.ops.poa_engine import TorchPOAEngine
+    tiers = TorchPOAEngine.TIERS
+    t0 = time.perf_counter()
+    flags = ["-r", str(haps), *LONG_FLAGS]
+    dirs = {}
+    for band in LONG_BANDS:
+        for who in ("port", "native"):
+            d = os.path.join(SMOKE_DIR, f"long{haps}_{who}_{band}")
+            os.makedirs(d, exist_ok=True)
+            dirs[who, band] = (os.path.join(d, "out.gfa"),
+                               os.path.join(d, "out.maf"))
+    refs = {}
+    for band in LONG_BANDS:
+        out, maf = dirs["native", band]
+        log = open(os.path.join(SMOKE_DIR, f"long{haps}_native_{band}.log"),
+                   "w")
+        refs[band] = (subprocess.Popen(
+            [sys.executable, "-m", "smoothxg_tpu.cli", "-g", gfa, "-o", out,
+             "-m", maf, *flags, "--long-poa-band", band, "--engine",
+             "native"], cwd=HERE, env=dict(os.environ, JAX_PLATFORMS="cpu"),
+            stdout=log, stderr=subprocess.STDOUT), log)
+    try:
+        picks = {}
+        for band in LONG_BANDS:
+            out, maf = dirs["port", band]
+            seen = []
+            block_main_path(
+                f"default -l 4000 main path ({haps} x 80 kb, "
+                f"--long-poa-band {band})", "poa_win", lambda: cli.run(
+                    ["-g", gfa, "-o", out, "-m", maf, *flags,
+                     "--long-poa-band", band]), clock_mhz, depth=0,
+                records=seen)
+            native = [r for r in seen if r[3] == "graph" and r[4] is None]
+            redone = [r for r in seen if r[3] == "graph" and r[4] is not None]
+            say(f"default -l 4000 ({haps} x 80 kb, --long-poa-band {band}): "
+                f"{len(seen)} "
+                f"blocks, {len(seen) - len(native) - len(redone)} on the "
+                f"kernel, fallbacks: no tier {len(native)}, overflow redo "
+                f"{len(redone)} (" + ", ".join(
+                    f"{len(r[0])} x {min(map(len, r[0]))}-"
+                    f"{max(map(len, r[0]))} bp at V{tiers[r[4]][0]}x"
+                    f"L{tiers[r[4]][1]}" for r in redone) + ")")
+            if native:
+                fail(f"default -l 4000 ({haps} x 80 kb, --long-poa-band "
+                     f"{band}): {len(native)} blocks ran natively without a "
+                     f"launch: "
+                     + ", ".join(f"{len(r[0])} x {min(map(len, r[0]))}-"
+                                 f"{max(map(len, r[0]))} bp" for r in native))
+            at = [r for r in seen if r[3] == "raw" and r[4] is not None
+                  and tiers[r[4]][1:] == (LONG_LW, LONG_LW)
+                  and (r[5].wb >= 0) == (band != "0")]
+            if not at:
+                fail(f"default -l 4000 (--long-poa-band {band}): no block "
+                     f"ran at a tier of LW {LONG_LW}")
+            pick = max(at, key=lambda r: sum(len(r[0][0]) * len(x)
+                                             for x in r[0][1:]))
+            picks["banded" if band != "0" else "full width"] = (
+                pick[0], pick[5], tiers[pick[4]])
+        long_kernels(torch, dev, pool, picks)
+        for band in LONG_BANDS:
+            ref, log = refs[band]
+            rc = ref.wait(timeout=900)
+            log.close()
+            with open(log.name) as f:
+                text = f.read()
+            if rc != 0:
+                fail(f"long native reference (--long-poa-band {band}) "
+                     f"exited {rc}: {text[-800:]}")
+            say(f"default -l 4000 identity (--long-poa-band {band}): native "
+                f"engine run ({'; '.join(smoothing_phases(text))})")
+            same_bytes(f"default -l 4000 main path ({haps} x 80 kb, "
+                       f"--long-poa-band {band})", *dirs["port", band],
+                       *dirs["native", band])
+    finally:
+        for ref, log in refs.values():
+            if ref.poll() is None:
+                ref.kill()
+                ref.wait()
+            log.close()
+    say(f"default -l 4000 phase ({haps} x 80 kb): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def start_native(gfa: str, out: str, maf: str, flags, log: str):
+    """Starts the JAX package's CLI with --engine native on `gfa` at
+    `flags` in a subprocess (its output to `log` under SMOKE_DIR); returns
+    a function that waits for it and gives (its output, its wall seconds),
+    failing on a nonzero exit."""
+    import threading
+    log = os.path.join(SMOKE_DIR, log)
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "smoothxg_tpu.cli", "-g", gfa, "-o", out,
+             "-m", maf, *flags, "--engine", "native"], cwd=HERE,
+            env=dict(os.environ, JAX_PLATFORMS="cpu"), stdout=f,
+            stderr=subprocess.STDOUT)
+    CHILDREN.append(proc)
+    end = []
+    waiter = threading.Thread(
+        target=lambda: end.append((proc.wait(), time.perf_counter())),
+        daemon=True)
+    waiter.start()
+
+    def result():
+        waiter.join(timeout=900)
+        with open(log) as f:
+            text = f.read()
+        if not end:
+            fail(f"native reference run on {gfa} did not end in 900 s")
+        if end[0][0] != 0:
+            fail(f"native reference run exited {end[0][0]}: {text[-800:]}")
+        return text, end[0][1] - t0
+    return result
+
+
+def pool_phases(torch, dev, clock_mhz, pool):
+    """Phases 3-17, the ones that hold kernels to plain versions run in
+    `pool`.  Returns (kernel entries, main-path launches, phase 4's
+    pangenome, the native reference's (GFA, MAF))."""
+    from smoothxg_tpu_torch import cli
+    from smoothxg_tpu_torch.ops.poa_engine import TorchPOAEngine
     from smoothxg_tpu_torch.testing.synth import write_pangenome
-    os.makedirs(SMOKE_DIR, exist_ok=True)
     gfa = write_pangenome(os.path.join(SMOKE_DIR, "pangenome.gfa"),
                           haplotypes=16, length=80_000, snv_rate=0.01,
                           indel_rate=0.001, sv_count=4, seed=SEED)
@@ -2662,6 +2938,16 @@ def main() -> None:
         return (os.path.join(SMOKE_DIR, f"{tag}.gfa"),
                 os.path.join(SMOKE_DIR, f"{tag}.maf"))
 
+    # phase 5's reference runs beside phases 3 and 4
+    out2, maf2 = outs("native")
+    native_ref = start_native(gfa, out2, maf2, MAIN_FLAGS, "native.log")
+
+    phase("phase 3: poa_win against its plain version at every tier")
+    entries = {}
+    entries["poa_win"], timing = kernel_phase(torch, dev, clock_mhz, pool)
+    torch.cuda.empty_cache()
+
+    phase("phase 4: the main path")
     out, maf = outs("port")
     launches = {}
     launches["poa_win"] = block_main_path(
@@ -2669,22 +2955,13 @@ def main() -> None:
         lambda: cli.run(["-g", gfa, "-o", out, "-m", maf, *MAIN_FLAGS]),
         clock_mhz)
 
-    out2, maf2 = outs("native")
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "smoothxg_tpu.cli", "-g", gfa, "-o", out2,
-         "-m", maf2, *MAIN_FLAGS, "--engine", "native"],
-        cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
-    nwall = time.perf_counter() - t0
-    if res.returncode != 0:
-        fail(f"native reference run exited {res.returncode}: "
-             f"{res.stderr[-800:]}")
-    say(f"identity: native engine run {nwall:.2f} s "
-        f"({'; '.join(smoothing_phases(res.stderr))})")
+    text, nwall = native_ref()
+    say(f"identity: native engine run {nwall:.2f} s, beside phases 3 and 4 "
+        f"({'; '.join(smoothing_phases(text))})")
     same_bytes("main path", out, maf, out2, maf2)
 
-    entries["poa_round"] = round_phase(torch, dev, clock_mhz)
+    phase("phase 6: poa_round against its plain version")
+    entries["poa_round"] = round_phase(torch, dev, clock_mhz, pool)
 
     from smoothxg_tpu_torch.ops.poa_round import TorchRoundPOAEngine
     out3, maf3 = outs("round")
@@ -2754,7 +3031,10 @@ def main() -> None:
              lambda: TorchPOAEngine(device=dev, shape=(8704, 4096))),
             ("poa_stacked", "stacked",
              lambda: TorchPOAEngine(device=dev, kernel="stacked"))):
-        entries[name] = chase_phase(torch, dev, clock_mhz, name, timing)
+        phase(f"phases 8-11: {name} against its plain version, and its "
+              f"main path")
+        entries[name] = chase_phase(torch, dev, clock_mhz, name, timing,
+                                    pool)
         o, m = outs(tag)
         launches[name] = block_main_path(
             f"{tag} main path ({name})", name,
@@ -2763,18 +3043,20 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # phases 12-13: the probes and the code-chase kernels' stages
+    phase("phases 12-13: the probes and the code-chase kernels' stages")
     entries.update(probe_phase(torch, dev, clock_mhz))
     for fam in PROBES:
         launches[fam] = entries[fam].pop("launches")
-    stage_phase(torch, dev, timing)
+    stage_phase(torch, dev, timing, pool)
 
     # phases 14-16: the SGD layout at full size, the split stage's kernels,
     # and the main paths through them
+    phase("phases 14-16: the SGD layout, the split stage's kernels")
     entries.update(sgd_phase(torch, dev))
     for name in ("sgd", "sgd_plan"):
         launches[name] = entries[name].pop("launches")
     torch.cuda.empty_cache()
-    entries.update(split_phase(torch, dev, clock_mhz))
+    entries.update(split_phase(torch, dev, clock_mhz, pool))
     torch.cuda.empty_cache()
     sgd_main_path(gfa)
     launches.update(split_main_path())
@@ -2782,30 +3064,152 @@ def main() -> None:
     # every main path to its own kernels
     launches.update({name: 0 for name in LONG})
 
-    # phases 17-20: --engine jax's batch kernel and main path, sharding
-    # over cards and streams, and a two-rank run
-    entries["poa_batch"] = batch_phase(torch, dev, clock_mhz)
-    torch.cuda.empty_cache()
-    launches["poa_batch"] = jax_main_path(gfa, out2, maf2, clock_mhz)
-    shard_phase(torch, dev)
-    torch.cuda.empty_cache()
-    ranks_phase(gfa, out2, maf2)
+    # phase 17: --engine jax's batch kernel
+    phase("phase 17: poa_batch against its plain version")
+    entries["poa_batch"] = batch_phase(torch, dev, clock_mhz, pool)
+    return entries, launches, gfa, (out2, maf2)
 
-    # phases 21-22: the batched autocorrelation screen, and the host steal
-    entries["autocorr"], launches["autocorr"] = autocorr_phase(
-        torch, dev, clock_mhz)
-    torch.cuda.empty_cache()
-    steal_main_path(gfa, out2, maf2)
-    steal_phase(torch, dev)
-    torch.cuda.empty_cache()
 
-    # phase 23: every kernel entry under compute-sanitizer and the guard
-    # allocator
-    sanitize_phase()
+def engine_run(gfa: str, out: str, maf: str, engine):
+    """The main path through the API with a pre-built engine:
+    run_smoothing(config_from_args(<the CLI's flags>), engine=engine)."""
+    from smoothxg_tpu_torch import cli
+    from smoothxg_tpu_torch.pipeline.run import run_smoothing
+    args = cli.build_parser().parse_args(["-g", gfa, "-o", out, "-m", maf,
+                                          *MAIN_FLAGS])
+    cfg = cli.config_from_args(args, add_consensus=not args.vanish_consensus)
+    return lambda: (0, run_smoothing(cfg, engine=engine)[2])
 
-    # phase 24: deep blocks through the three whole-block kernels, and the
-    # main path at pggb's haplotype depth, at -t 1 and -t 4 in one rank
-    deep_phase(torch, dev, clock_mhz)
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    long_haps = None           # --long H: phase 25 alone, H haplotypes
+    if argv:
+        if len(argv) != 2 or argv[0] != "--long" or not argv[1].isdigit():
+            fail("usage: chip_smoke.py [--long HAPLOTYPES]")
+        long_haps = int(argv[1])
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this smoke test needs an NVIDIA GPU")
+    if not os.path.isdir(os.path.join(HERE, "smoothxg_tpu_torch")):
+        fail("smoothxg_tpu_torch not found: run from a checkout of the repo")
+    faulthandler.dump_traceback_later(WATCHDOG_S - (time.perf_counter() - T0))
+    sys.path.insert(0, HERE)
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    smi = smi[0] if smi else "nvidia-smi: no output"
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True,
+                         timeout=60).stdout.split()
+    try:
+        clock_mhz = float(clk[0])
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi gave no max SM clock: {clk}")
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.split()
+    say(f"device: {kind} ({smi}, max SM clock {clock_mhz:.0f} MHz, compute "
+        f"mode {','.join(mode) or '?'}), torch {torch.__version__}, cuda "
+        f"{torch.version.cuda}, count {torch.cuda.device_count()}")
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    from smoothxg_tpu_torch.ops import _build
+    # three builds at once: the JAX package's native/ libraries with make,
+    # the port's host C++ libraries with g++ (built at first use; built here
+    # so that the main paths' walls are not charged for them), and the CUDA
+    # kernels
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    make_log = os.path.join(SMOKE_DIR, "native_make.log")
+    t0 = time.perf_counter()
+    with open(make_log, "w") as f:
+        make = subprocess.Popen(["make", "-C", os.path.join(HERE, "native")],
+                                stdout=f, stderr=subprocess.STDOUT)
+    CHILDREN.append(make)
+    with ThreadPoolExecutor(len(_build.HOST_NAMES)) as gxx:
+        host = {n: gxx.submit(_build.host_lib, n) for n in _build.HOST_NAMES}
+        _build.load()
+        t_cuda = time.perf_counter() - t0
+        host = {n: f.result() for n, f in host.items()}
+    say(f"build: CUDA kernels, one nvcc per source for sm_90a started "
+        f"together and one link, {t_cuda:.2f} s beside the two builds below "
+        f"({_build.lib_path()}); "
+        + build_summary(_build.build_log["ptxas"]))
+    for name, path in host.items():
+        if path is None:
+            fail(f"g++ build of csrc/host/{name}.cpp failed")
+    say(f"build: the port's host libraries from csrc/host/ with g++, at "
+        f"once: " + ", ".join(f"{n} {t:.2f} s" for n, t in
+                              _build.host_build_log.items()))
+    if make.wait(timeout=600) != 0:
+        with open(make_log) as f:
+            fail(f"native build failed: {f.read()[-800:]}")
+    say(f"build: the JAX package's native/ libraries with make, done "
+        f"{time.perf_counter() - t0:.2f} s after the builds started, for "
+        f"the identity phase's reference subprocess only (the port never "
+        f"loads them)")
+
+    from smoothxg_tpu_torch.testing.synth import write_pangenome
+    if long_haps is not None:
+        with plain_pool() as pool:
+            long_phase(torch, dev, clock_mhz, write_pangenome(
+                os.path.join(SMOKE_DIR, f"long{long_haps}.gfa"),
+                haplotypes=long_haps, length=80_000, seed=SEED), pool,
+                long_haps)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+
+    # one pool of plain-version workers for the whole run
+    pool = plain_pool()
+    try:
+        entries, launches, gfa, (out2, maf2) = pool_phases(
+            torch, dev, clock_mhz, pool)
+        torch.cuda.empty_cache()
+
+        # phases 18-20: --engine jax's main path, sharding over cards and
+        # streams, and a two-rank run
+        phase("phases 18-20: the --engine jax main path, sharding, two ranks")
+        launches["poa_batch"] = jax_main_path(gfa, out2, maf2, clock_mhz)
+        shard_phase(torch, dev)
+        torch.cuda.empty_cache()
+        ranks_phase(gfa, out2, maf2)
+
+        # phases 21-22: the batched autocorrelation screen, and the host steal
+        phase("phases 21-22: autocorr, and the host steal")
+        entries["autocorr"], launches["autocorr"] = autocorr_phase(
+            torch, dev, clock_mhz)
+        torch.cuda.empty_cache()
+        steal_main_path(gfa, out2, maf2)
+        steal_phase(torch, dev)
+        torch.cuda.empty_cache()
+
+        # phase 23: every kernel entry under compute-sanitizer and the guard
+        # allocator
+        phase("phase 23: the sanitizers")
+        deep_ref = deep_plain(pool)      # phase 24's longest plain versions
+        sanitize_phase()
+
+        # phase 24: deep blocks through the three whole-block kernels, and the
+        # main path at pggb's haplotype depth, at -t 1 and -t 4 in one rank
+        phase("phase 24: deep blocks")
+        deep_phase(torch, dev, clock_mhz, pool, deep_ref)
+
+        # phase 25: the CLI's default -l 4000 on phase 4's pangenome at both
+        # --long-poa-band settings, on the tiers re-derived for the card
+        phase("phase 25: the default -l 4000")
+        long_phase(torch, dev, clock_mhz, gfa, pool)
+    finally:
+        pool.shutdown(cancel_futures=True)
 
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith(("jax.", "smoothxg_tpu."))

@@ -43,37 +43,63 @@ pcap, node ids are int16 to VW_MAX).  What a block's depth costs is:
     alleles a site, so poa_win holds 8 predecessor slots (ops/poa_win.py
     PCAP, the kernel's limit; 4 on the TPU): its tables at 8 slots still
     fit one block's shared memory at the (4352, 2048) tier (205 KiB of
-    227 at one block an SM), and only the (6144, 3072) tier's move to
-    device memory (288 KiB); poa_code has 8 slots, poa_stacked 4 (its
-    2-bit slot field);
+    227 at one block an SM), and only the (6144, 3072) tier's (288 KiB)
+    and the two -l 4000 tiers' (410 KiB and 1.43 MiB at LS 4640) sit in
+    device memory; poa_code has 8 slots, poa_stacked 4 (its 2-bit slot
+    field);
   * its R - 1 rounds in order on one SM, L0 x (R - 1) DP rows: what
     `_steal_costs` already counts, so the steal's balance follows depth.
 The default cap (`seq_cap`) is the one limit of these that binds: the
 depth at which one block's planes and DP scratch fill SCRATCH_BUDGET at
-the tier and variant that need the most, so that no launch, not even
-_tier_batch's single block, passes the budget: (24 GiB - 1,427 MB) /
-(5 B x 10240) = 475,451 sequences for poa_win's tiers, 1,233,903 for
-poa_stacked's, 1,230,414 for shape=(8704, 4096).  A deeper block goes to
-the native engine (counted in `fallbacks`).  The cap is a memory ceiling,
-not a time limit: the rounds' time grows with R (330 ms for R 96 x ~1 kb
-on an H100, chip smoke phase 24) and nothing caps it; blocks at pggb's
-depth hold about -r sequences (HPRC's release graph: 90).
+the tier and variant that need the most (a full-width tier's banded
+variant counts: `_route` sends banded blocks there too), so that no
+launch, not even _tier_batch's single block, passes the budget: (24 GiB -
+4,565 MB) / (5 B x 8704) = 487,241 sequences for poa_win's tiers (the
+(VW_MAX, 8704) tier's banded variant), 500,360 for poa_stacked's,
+1,230,411 for shape=(8704, 4096).  A deeper block goes to the native
+engine (counted in `fallbacks`).  The cap is a memory ceiling, not a time
+limit: the rounds' time grows with R (330 ms for R 96 x ~1 kb on an H100,
+chip smoke phase 24) and nothing caps it; blocks at pggb's depth hold
+about -r sequences (HPRC's release graph: 90).
 
 Tiers are (VW, LW, W): node capacity, sequence capacity, stored DP window.
 On the H100 the DP planes live in device memory at 16 bytes per cell
 (H, Hq, E1, E2 as int32 for poa_win), ~16 * VW * LS bytes of scratch per
-block, LS the launch's row stride (ops/poa_win.row_stride; a windowed tier
-stores W columns), so a tier's batch per launch is what SCRATCH_BUDGET
-holds at the longest sequence of the blocks routed to it (capped at
-MAX_BATCH, the blocks a 132-SM card holds at once).  The tiers cover what
-the TPU tiers took — full width to LW 4096, banded long blocks to LW
-10240, VW to 8704 — without K-stacking (sizes per block for poa_win at
-LS = LW):
+block, LS the launch's row stride (ops/poa_win.row_stride; a banded
+launch stores W columns), so a tier's batch per launch is what
+SCRATCH_BUDGET holds at the longest sequence of the blocks routed to it
+(capped at MAX_BATCH, the blocks a 132-SM card holds at once).  The
+table is the card's, not the TPU's: the TPU tiers stopped at full width
+to LW 4096 and VW 8704 because 170-200 MB of DP state a long block passed
+any VMEM budget, and sent longer blocks to the host pool.  Here a tier is
+bounded by the kernel's own limits — VW <= VW_MAX (32,766: node ids and
+rows are int16 in its tables), a full-width row stride any multiple of
+32, banded LW <= 32,768 (int16 band columns) — and by memory: one launch
+of SCRATCH_BUDGET on an 80 GB card.  Sizes per block for poa_win at LS =
+LW (full width) or W (banded), tables included; a route takes the first
+tier that holds the block, so the full-width tiers run from small to large
+and the windowed tier, which only banded blocks take, comes before the
+two that hold the longest:
   (4352, 2048, 2048)   the bulk of -l 700..1100 blocks, 143 MB/block
-  (8704, 2048, 2048)   high-growth blocks of the same lengths, 285 MB
+  (8704, 2048, 2048)   high-growth blocks of the same lengths, 286 MB
   (6144, 3072, 3072)   mid-length full-width blocks, 302 MB
-  (8704, 4096, 4096)   full width to 4095 bp, 570 MB
-  (8704, 10240, 3072)  banded (abPOA) long blocks, 428 MB
+  (8704, 4096, 4096)   full width to 4095 bp, 571 MB
+  (8704, 10240, 3072)  banded (abPOA) long blocks, window to 3072, 428 MB
+  (8704, 8704, 8704)   every block of the CLI's default -l 4000: its
+                       ranges are cut at 2 x 4000 bp and padded by 311 a
+                       side, so a sequence is at most 8,622 bp; full
+                       width (--long-poa-band 0) and banded blocks whose
+                       window passes 3072; VW = LW holds the growth
+                       estimate of 16-haplotype blocks (4,898-6,490 at
+                       ~4.6 kb); 1,213 MB (647 MB at the default run's LS
+                       4640, 39 blocks a launch)
+  (VW_MAX, 8704, 8704) the same lengths past that estimate: deep blocks,
+                       whose estimate overcounts about fourfold (up to
+                       15,927 at 90 haplotypes against a true V of
+                       ~5,500); 4,565 MB (2,434 MB at LS 4640, 10 a
+                       launch)
+A block past the last tier (a sequence past 8,703 bp, an estimate past
+VW_MAX, a seed past VW) goes to the native engine.
 
 Two options select the other whole-block kernels, as they select them in
 FusedPallasEngine:
@@ -83,7 +109,7 @@ FusedPallasEngine:
   * `kernel="stacked"` serves full-width tiers by
     ops/poa_stacked.poa_stacked (csrc/poa_stacked.cu, the port of
     _stacked_core: one warp per block, 4 predecessor slots), by default
-    the four full-width tiers above; a windowed tier raises ValueError.
+    the six full-width tiers above; a windowed tier raises ValueError.
 
 `devices` shards each launch's blocks over several cards (the port of the
 `_compiled_*_sharded` wrappers, FusedPallasEngine's `devices`): a chunk
@@ -108,7 +134,7 @@ from .poa_fused import FusedHostEngine
 from .poa_host import POAParams
 from .poa_rehydrate import GROWTH_CAL, estimate_final_v, rehydrate_device_raw
 from .poa_stacked import poa_stacked, scratch_words, stacked_caps
-from .poa_win import WinCaps, pack_blocks, poa_win, stride_for
+from .poa_win import VW_MAX, WinCaps, pack_blocks, poa_win, stride_for
 
 __all__ = ["POAParams", "TorchPOAEngine", "rehydrate_device_raw"]
 
@@ -117,14 +143,15 @@ class TorchPOAEngine:
     """Whole-block POA engine: one kernel launch per chunk of blocks."""
 
     TIERS = ((4352, 2048, 2048), (8704, 2048, 2048), (6144, 3072, 3072),
-             (8704, 4096, 4096), (8704, 10240, 3072))
+             (8704, 4096, 4096), (8704, 10240, 3072), (8704, 8704, 8704),
+             (VW_MAX, 8704, 8704))
     GROWTH_CAL = GROWTH_CAL
     SCRATCH_BUDGET = 24 << 30     # bytes of DP scratch per launch
     # bytes of a block's sequence and path planes a (sequence slot,
     # column): int8 sequences in, int32 paths out, both (RW, LW) on the
     # card; with the DP scratch they make a launch's memory (_tier_batch)
     # and set the default sequence cap (`seq_cap`, see the module
-    # docstring): (24 GiB - 1,427 MB) / (5 B x 10240) = 475,451 sequences
+    # docstring): (24 GiB - 4,565 MB) / (5 B x 8704) = 487,241 sequences
     # at poa_win's tiers
     PLANE_BYTES = 5
     # the most POA blocks one launch puts on a 132-SM H100 at once, by
@@ -205,7 +232,9 @@ class TorchPOAEngine:
         launch passes the budget."""
         caps = []
         for VW, LW, W in self.tiers:
-            for banded in {False, W < LW}:
+            # a windowed tier takes banded blocks only, a full-width tier
+            # both (`_route`)
+            for banded in (True,) if W < LW else (False, True):
                 words = self._kernel(VW, LW, W, True, banded)[2](
                     stride_for(LW, LW))
                 caps.append((self.SCRATCH_BUDGET - 4 * words)
@@ -404,8 +433,11 @@ class TorchPOAEngine:
         LW, the seed fits VW, the predicted final node count (sum of
         lengths, else the calibrated mash growth estimate) fits VW, and the
         stored window covers the row: full width always, a banded tier only
-        for banded params whose band plausibly fits.  A misroute is never
-        wrong: the kernel's overflow flag redoes the block natively."""
+        for banded params whose band plausibly fits.  So a banded block
+        whose window passes every windowed tier (a wide length spread)
+        takes the first full-width tier that holds it, where its band
+        always fits.  A misroute is never wrong: the kernel's overflow flag
+        redoes the block natively."""
         if not seqs or len(seqs) > self.RW:
             return None
         lens = [len(s) for s in seqs]

@@ -229,12 +229,15 @@ def run_smoothing(cfg: Config, device: str | torch.device = "cuda",
         if cfg.mmap_seqindex:
             # on-disk mmap sequence store (reference: src/seqindex.cpp,
             # built once per run in src/main.cpp:387-389) — path sequences
-            # are served as lazy views instead of resident strings
+            # are served as lazy views instead of resident strings.  Its
+            # name is unique to this run, so runs whose outputs share a
+            # directory never map each other's store; -K keeps it
             from ..graph.seqindex import SeqIndex
             with phase(tag, "building sequence index"):
-                seqidx = SeqIndex.build(
-                    idx, tempfiles.register(
-                        os.path.join(tmpdir, f".seqindex_{it}{rsuf}.sqx")))
+                sqx = tempfiles.unique(f".seqindex_{it}{rsuf}.", ".sqx")
+                if not cfg.keep_temp:
+                    tempfiles.register(sqx)
+                seqidx = SeqIndex.build(idx, sqx)
             path_seqs = seqidx.views()
         else:
             path_seqs = [idx.path_seq(p) for p in range(idx.path_count())]
@@ -380,7 +383,7 @@ def run_smoothing(cfg: Config, device: str | torch.device = "cuda",
             temps.append(out_path)
             if not cfg.keep_temp:
                 tempfiles.register(out_path)
-        if seqidx is not None:
+        if seqidx is not None and not cfg.keep_temp:
             seqidx.remove()      # per-iteration temp (src/main.cpp:611)
             tempfiles.unregister(seqidx.path)
         path_input = out_path

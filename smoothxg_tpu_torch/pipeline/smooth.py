@@ -266,7 +266,8 @@ def smooth_blocks(
             f"abPOA band semantics (global + adaptive band wb=311 "
             f"wf=0.03) instead of the reference-default full-width "
             f"local spoa; pass --long-poa-band 0 for reference-default "
-            f"semantics (those blocks then run on the host pool)")
+            f"semantics (the fused engine then aligns those blocks at full "
+            f"width on the card, to 8,703 bp a sequence)")
 
     if (threads > 1 and len(prepped) >= 2 * threads
             and getattr(engine, "supports_full_block_pool", False)):

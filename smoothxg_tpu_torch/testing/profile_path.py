@@ -11,6 +11,8 @@ cumulative time.  Needs CUDA; without it, it fails.
   python -m smoothxg_tpu_torch.testing.profile_path --engine jax
   python -m smoothxg_tpu_torch.testing.profile_path --engine fused \\
       --haplotypes 16 --length 80000 --out smoke_out/profile
+  python -m smoothxg_tpu_torch.testing.profile_path --engine fused \\
+      --flags="-r 16 -j 5k -e 5k -l 4000 -t 1 --long-poa-band 0"
 
 `--engine code` and `--engine stacked` run the same flags through the API
 with TorchPOAEngine(shape=(8704, 4096)) (kernel poa_code) and
@@ -70,6 +72,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=20261016)
     ap.add_argument("--out", default=os.path.join("smoke_out", "profile"))
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--flags", default=" ".join(FLAGS),
+                    help="the CLI's smoothing flags (default: the chip "
+                         "smoke's main path)")
     args = ap.parse_args(argv)
 
     import torch
@@ -87,7 +92,7 @@ def main(argv=None) -> int:
                           snv_rate=0.01, indel_rate=0.001, sv_count=4,
                           seed=args.seed)
     argv_run = ["-g", gfa, "-o", os.path.join(args.out, "out.gfa"),
-                "-m", os.path.join(args.out, "out.maf"), *FLAGS]
+                "-m", os.path.join(args.out, "out.maf"), *args.flags.split()]
     if args.engine in ("fused", "pallas", "jax"):
         argv_run += ["--engine", args.engine]
 
@@ -135,6 +140,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "engine": args.engine,
         "input": f"{args.haplotypes} x {args.length} bp, seed {args.seed}",
+        "flags": args.flags,
         "wall_s": wall, "kernel_busy_s": busy, "launches": len(timed.pairs),
         "idle_share": 1 - busy / wall, "smoothing": smoothing,
         "stats": engine.stats()}))

@@ -18,9 +18,11 @@ package's own), in three parts:
           synccheck and initcheck (the toolkit's own, beside the nvcc that
           builds the kernels; PYTORCH_NO_CUDA_MEMORY_CACHING=1, so that
           every tensor is an allocation of its own), each in a child
-          process; then the same harness under the guard allocator of
-          testing/guard_alloc.cu (guard bands and two poison bytes), which
-          runs where compute-sanitizer does not.  With --full also
+          process, and beside them the same harness under the guard
+          allocator of testing/guard_alloc.cu (guard bands and two poison
+          bytes), which runs where compute-sanitizer does not.  Each child
+          is killed past its time limit (TOOL_TIMEOUT, or run_card's
+          `timeout`), and that fails the lane.  With --full also
           tests/test_torch_cuda.py (-m cuda --noconftest) under memcheck,
           or under the guard allocator where memcheck cannot run.
 
@@ -214,8 +216,16 @@ def _result(out: str):
     return None
 
 
-def run_tool(cs: str, tool: str, target: list, log_dir: str) -> dict:
-    """One compute-sanitizer tool over `target` in a child process."""
+def _timed_out(err: subprocess.TimeoutExpired) -> str:
+    """What a child killed at its time limit had written."""
+    return "".join(x.decode(errors="replace") if isinstance(x, bytes) else x
+                   for x in (err.stdout, err.stderr) if x)
+
+
+def run_tool(cs: str, tool: str, target: list, log_dir: str,
+             timeout: float = TOOL_TIMEOUT) -> dict:
+    """One compute-sanitizer tool over `target` in a child process; a run
+    past `timeout` seconds is killed and fails."""
     env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
     # (--kernel-regex: deprecated in 2025.2 for --kernel-name, but taken);
     # memcheck pads every allocation, so that an overrun into a neighbouring
@@ -224,8 +234,16 @@ def run_tool(cs: str, tool: str, target: list, log_dir: str) -> dict:
            f"kns={KERNEL_REGEX}",
            *(["--padding", "64"] if tool == "memcheck" else []), *target]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
-                         text=True, timeout=TOOL_TIMEOUT)
+    try:
+        res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                             text=True, timeout=timeout)
+    except subprocess.TimeoutExpired as err:
+        with open(os.path.join(log_dir, f"{tool}.log"), "w") as f:
+            f.write(_timed_out(err))
+        return {"tool": tool, "rc": None, "seconds": round(timeout, 2),
+                "supported": True, "reports": None, "unexpected": [],
+                "kernels": [], "drive_ok": None, "ok": False,
+                "note": f"did not end in {timeout:.0f} s"}
     secs = time.perf_counter() - t0
     text = res.stdout + res.stderr
     with open(os.path.join(log_dir, f"{tool}.log"), "w") as f:
@@ -270,12 +288,20 @@ def build_guard() -> str:
     return path
 
 
-def run_guard(guard: str, pytest_args=None) -> dict:
-    """The harness (or pytest) in a child process on the guard allocator."""
+def run_guard(guard: str, pytest_args=None,
+              timeout: float = TOOL_TIMEOUT) -> dict:
+    """The harness (or pytest) in a child process on the guard allocator;
+    a run past `timeout` seconds is killed and fails."""
     t0 = time.perf_counter()
-    res = subprocess.run(_drive_cmd(guard, pytest_args), cwd=REPO,
-                         capture_output=True, text=True,
-                         timeout=TOOL_TIMEOUT)
+    try:
+        res = subprocess.run(_drive_cmd(guard, pytest_args), cwd=REPO,
+                             capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired as err:
+        return {"tool": "guard", "rc": None, "seconds": round(timeout, 2),
+                "violations": None, "first": None, "allocations": None,
+                "kernels": [], "failed": [], "ok": False,
+                "tail": f"did not end in {timeout:.0f} s:\n"
+                        + _timed_out(err)[-3000:]}
     secs = time.perf_counter() - t0
     drive = _result(res.stdout) or {}
     g = drive.get("guard") or {}
@@ -290,10 +316,11 @@ def run_guard(guard: str, pytest_args=None) -> dict:
             (res.stdout + res.stderr)[-3000:]}
 
 
-def run_card(full: bool = False, echo=_echo, log_dir: str | None = None
-             ) -> dict:
-    """The card part; returns {"ok", "tools": [...], "guard": {...},
-    "full": {...} or None, "version", "path"}."""
+def run_card(full: bool = False, echo=_echo, log_dir: str | None = None,
+             timeout: float = TOOL_TIMEOUT) -> dict:
+    """The card part, each child process limited to `timeout` seconds;
+    returns {"ok", "tools": [...], "guard": {...}, "full": {...} or None,
+    "version", "path"}."""
     from ..ops import _build
     log_dir = log_dir or os.path.join(REPO, "smoke_out", "sanitize")
     os.makedirs(log_dir, exist_ok=True)
@@ -309,27 +336,33 @@ def run_card(full: bool = False, echo=_echo, log_dir: str | None = None
     cs = compute_sanitizer()
     out = {"path": cs, "version": tool_version(cs) if cs else None,
            "tools": [], "full": None}
+    # the four tools and the guard allocator at once, each in its own
+    # process on the card
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(TOOLS) + 1) as pool:
+        guard_run = pool.submit(run_guard, guard, None, timeout)
+        runs = [pool.submit(run_tool, cs, t, _drive_cmd(), log_dir, timeout)
+                for t in (TOOLS if cs else ())]
+        out["tools"] = [r.result() for r in runs]
+        out["guard"] = guard_run.result()
     if cs is None:
         echo("sanitizers: the toolkit beside nvcc has no compute-sanitizer")
     else:
-        # the four tools at once, each in its own process on the card
-        from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(len(TOOLS)) as pool:
-            runs = [pool.submit(run_tool, cs, t, _drive_cmd(), log_dir)
-                    for t in TOOLS]
-            out["tools"] = [r.result() for r in runs]
         for r in out["tools"]:
             if not r["supported"]:
                 echo(f"sanitizers: {r['tool']} (compute-sanitizer "
                      f"{out['version']}): not run on this card: "
                      f"{r['note']} ({r['seconds']:.1f} s)")
+            elif "note" in r:
+                echo(f"sanitizers: {r['tool']} (compute-sanitizer "
+                     f"{out['version']}): {r['note']}, killed; its output "
+                     f"so far in {log_dir}")
             else:
                 echo(f"sanitizers: {r['tool']} (compute-sanitizer "
                      f"{out['version']}): {r['seconds']:.1f} s, kernels "
                      f"{len(r['kernels'])} {r['kernels']}, reports "
                      f"{r['reports']}, unexpected {len(r['unexpected'])} "
                      f"{r['unexpected'][:3]}")
-    out["guard"] = run_guard(guard)
     g = out["guard"]
     echo(f"sanitizers: guard allocator (bands of 4 KB, poisons 0x00 and "
          f"0xff in memory and shared memory): {g['seconds']:.1f} s, kernels "
@@ -345,9 +378,9 @@ def run_card(full: bool = False, echo=_echo, log_dir: str | None = None
                     if r["tool"] == "memcheck" and r["supported"]]
         if memcheck:
             out["full"] = run_tool(cs, "memcheck", _drive_cmd(None, args),
-                                   log_dir)
+                                   log_dir, timeout)
         else:
-            out["full"] = run_guard(guard, args)
+            out["full"] = run_guard(guard, args, timeout)
         f = out["full"]
         echo(f"sanitizers: tests/test_torch_cuda.py under {f['tool']}: "
              f"{f['seconds']:.1f} s, rc {f['rc']}"

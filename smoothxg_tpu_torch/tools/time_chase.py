@@ -17,6 +17,15 @@ Cases, each the fastest of `reps` launches after a warm one (CUDA events):
     T3072  one block of 16 sequences of ~2.5 kb at caps (6144, 3072), the
            tier whose graph tables leave shared memory at poa_win's 8
            predecessor slots
+  long blocks (--long; poa_win, poa_stacked, and `native`, the native C++
+  engine's wall on the same block, for blocks the parent tree ran there):
+    L4000  the block of the most DP cells of the CLI's default -l 4000 at
+           --long-poa-band 0 on the chip smoke's 16 x 80 kb pangenome
+           (`default_blocks`: 16 x ~4.6 kb, local, full width) at its tier
+           (8704, 8704)
+    L4000b the default band's banded block whose window passes the
+           windowed tier's 3,072 columns (15 sequences of 1,100-4,546
+           bases, global, banded) at the same full-width tier
   round kernel (poa_round):
     task   the chip smoke's phase-6 timing task (a ~1 kb local query
            against a graph of seven ~1 kb sequences, V ~ 1,220)
@@ -27,15 +36,20 @@ two checkouts can be seen to compute the same bytes.  Prints one line per
 case and a JSON line.  Needs CUDA.
 
 Usage: python -m smoothxg_tpu_torch.tools.time_chase [reps] [--pcap=N]
-[kernel ...] (kernels: poa_win poa_round poa_code poa_stacked; default all
-four; --pcap: poa_win's predecessor slots, default ops/poa_win.PCAP, so
-that 4, the TPU's, can be timed against it in turns)
+[--long] [kernel ...] (kernels: poa_win poa_round poa_code poa_stacked;
+default all four; --pcap: poa_win's predecessor slots, default
+ops/poa_win.PCAP, so that 4, the TPU's, can be timed against it in turns;
+--long: only the long-block cases, of poa_win, poa_stacked and native by
+default; `native` needs no tier of the card's table, so this copy of the
+tool times an older tree's native engine from that tree's root)
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import os
 import sys
+import time
 
 import numpy as np
 
@@ -70,6 +84,11 @@ FULL_CAPS = (1280, 1024)
 COPIES = (132, 1056)
 ROUND_COPIES = (132, 264)
 KERNELS = ("poa_win", "poa_round", "poa_code", "poa_stacked")
+# the long-block cases: the CLI's default -l 4000 on the chip smoke's
+# 16 x 80 kb pangenome, the tier its long blocks take, the kernels timed
+LONG_FLAGS = ["-r", "16", "-j", "5k", "-e", "5k", "-l", "4000", "-t", "1"]
+LONG_CAPS = (8704, 8704)
+LONG_KERNELS = ("poa_win", "poa_stacked", "native")
 
 
 def phase3_blocks(rng) -> list:
@@ -157,18 +176,127 @@ def wide_block() -> list:
 
 
 def block_kernel(label: str, pcap: int | None = None):
-    """(wrapper, caps of (VW, LW)) of a whole-block kernel, local, full
-    width; poa_win at `pcap` predecessor slots (default its PCAP)."""
+    """(wrapper, caps of (VW, LW[, local, banded])) of a whole-block
+    kernel at a full-width tier, local and unbanded by default; poa_win at
+    `pcap` predecessor slots (default its PCAP)."""
     from ..ops.poa_code import CodeCaps, poa_code
     from ..ops.poa_stacked import poa_stacked, stacked_caps
     from ..ops.poa_win import PCAP, WinCaps, poa_win
     return {
-        "poa_win": (poa_win, lambda VW, LW: WinCaps(
-            VW, LW, LW, True, False, pcap=pcap or PCAP)),
-        "poa_code": (poa_code, lambda VW, LW: CodeCaps(VW, LW, True, False)),
-        "poa_stacked": (poa_stacked,
-                        lambda VW, LW: stacked_caps(VW, LW, True, False)),
+        "poa_win": (poa_win, lambda VW, LW, local=True, banded=False:
+                    WinCaps(VW, LW, LW, local, banded, pcap=pcap or PCAP)),
+        "poa_code": (poa_code, lambda VW, LW, local=True, banded=False:
+                     CodeCaps(VW, LW, local, banded)),
+        "poa_stacked": (poa_stacked, lambda VW, LW, local=True,
+                        banded=False: stacked_caps(VW, LW, local, banded)),
     }[label]
+
+
+class _Captured(Exception):
+    """Raised by `_Capture` once it holds a run's blocks."""
+
+
+class _Capture:
+    """An engine that keeps the first POA call's blocks and stops the
+    run there (the smoothing run's load, prep and block finding are all
+    `default_blocks` needs)."""
+
+    def __init__(self):
+        self.blocks: list = []
+
+    def poa_block_batch(self, blocks):
+        self.blocks = list(blocks)
+        raise _Captured
+
+
+def default_blocks(band: str) -> list:
+    """The POA blocks, (sequences, weights, POAParams), of the CLI's
+    default -l 4000 (LONG_FLAGS) at --long-poa-band `band` on the chip
+    smoke's 16 x 80 kb pangenome (seed SEED), as the engine receives
+    them."""
+    import tempfile
+
+    from .. import cli
+    from ..pipeline.run import run_smoothing
+    from ..testing.synth import write_pangenome
+    cap = _Capture()
+    with tempfile.TemporaryDirectory() as d:
+        gfa = write_pangenome(os.path.join(d, "pangenome.gfa"),
+                              haplotypes=16, length=80_000, seed=SEED)
+        args = cli.build_parser().parse_args(
+            ["-g", gfa, "-o", os.path.join(d, "out.gfa"), *LONG_FLAGS,
+             "--long-poa-band", band, "--engine", "native"])
+        try:
+            run_smoothing(cli.config_from_args(
+                args, add_consensus=not args.vanish_consensus),
+                device="cpu", engine=cap)
+        except _Captured:
+            pass
+    return cap.blocks
+
+
+def long_blocks() -> dict:
+    """The long-block cases' blocks, by case, chosen by their shape (not by
+    the tier table, so an older tree picks the same): of --long-poa-band
+    0's full-width blocks past 4,095 bp, the one of the most DP cells; of
+    the default band's banded blocks, the first whose window (the abPOA
+    band, 2 (wb + wf L) + spread + 1) passes 3,072 columns."""
+    def window(sq, p):
+        lens = [len(s) for s in sq]
+        bw = p.wb + (p.wf_milli * max(lens)) // 1000
+        return 2 * bw + max(lens) - min(lens) + 1
+
+    full = [b for b in default_blocks("0")
+            if b[2].wb < 0 and max(map(len, b[0])) > 4095]
+    banded = [b for b in default_blocks("4k")
+              if b[2].wb >= 0 and window(b[0], b[2]) > 3072]
+    if not full or not banded:
+        raise SystemExit(f"time_chase: no long block (full width "
+                         f"{len(full)}, banded {len(banded)})")
+    return {"L4000": max(full, key=lambda b: sum(
+                len(b[0][0]) * len(s) for s in b[0][1:])),
+            "L4000b": banded[0]}
+
+
+def long_cases(label: str, dev, reps: int, blocks: dict) -> dict:
+    """A whole-block kernel, or the native engine (`native`, host wall,
+    the fastest of `reps` calls), on each long block at LONG_CAPS."""
+    row = {}
+    for case, (sq, w, p) in blocks.items():
+        if label == "native":
+            from ..ops.poa_native import NativePOAEngine
+            eng = NativePOAEngine()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                g = eng.poa_block_batch([(sq, w, p)])[0]
+                times.append((time.perf_counter() - t0) * 1e3)
+            h = hashlib.sha256(repr((g.base, g.seq_paths)).encode())
+            row[case] = {"ms": min(times), "digest": h.hexdigest()[:16],
+                         "V": len(g.base)}
+        else:
+            import torch
+            from ..ops.poa_win import pack_blocks
+            from ._probe import measure
+            kern, mkcaps = block_kernel(label)
+            ins = [x.to(dev) for x in pack_blocks([(sq, p)], LONG_CAPS[1])]
+            c = mkcaps(*LONG_CAPS, p.local, p.wb >= 0)
+            out = kern(*ins, c)
+            if int(out[0][0, 1]):
+                raise SystemExit(f"{label} {case}: the block overflows "
+                                 f"{LONG_CAPS}")
+            row[case] = {"ms": measure(lambda: kern(*ins, c), reps),
+                         "digest": digest(out), "V": int(out[0][0, 0])}
+            del ins, out
+            torch.cuda.empty_cache()
+        where = ("one core" if label == "native"
+                 else f"V{LONG_CAPS[0]}xL{LONG_CAPS[1]}")
+        print(f"{label} {case} ({len(sq)} sequences of {min(map(len, sq))}"
+              f"-{max(map(len, sq))}, {'local' if p.local else 'global'}"
+              f"{', banded' if p.wb >= 0 else ''}, V {row[case]['V']} on "
+              f"{where}): {row[case]['ms']:.3f} ms, outputs "
+              f"{row[case]['digest']}", flush=True)
+    return row
 
 
 def block_cases(label: str, dev, reps: int, pcap: int | None = None) -> dict:
@@ -234,10 +362,14 @@ def main(argv=None) -> int:
     pcap = None
     if argv and argv[0].startswith("--pcap="):
         pcap = int(argv.pop(0).split("=", 1)[1])
-    names = argv or list(KERNELS)
-    bad = [n for n in names if n not in KERNELS]
+    long = bool(argv) and argv[0] == "--long"
+    if long:
+        argv.pop(0)
+    known = LONG_KERNELS if long else KERNELS
+    names = argv or list(known)
+    bad = [n for n in names if n not in known]
     if bad:
-        print(f"time_chase: unknown kernels {bad} (one of {KERNELS})",
+        print(f"time_chase: unknown kernels {bad} (one of {known})",
               file=sys.stderr)
         return 1
     from ..device import resolve
@@ -248,8 +380,12 @@ def main(argv=None) -> int:
         print(f"time_chase: {e}", file=sys.stderr)
         return 1
     name, smi, mhz = card()
-    res = {n: round_cases(dev, reps) if n == "poa_round"
-           else block_cases(n, dev, reps, pcap) for n in names}
+    if long:
+        blocks = long_blocks()
+        res = {n: long_cases(n, dev, reps, blocks) for n in names}
+    else:
+        res = {n: round_cases(dev, reps) if n == "poa_round"
+               else block_cases(n, dev, reps, pcap) for n in names}
     print(json.dumps({"tool": "time_chase", "device": {
         "kind": name, "smi": smi, "max_sm_mhz": mhz}, "reps": reps,
         "pcap": pcap, **res}),

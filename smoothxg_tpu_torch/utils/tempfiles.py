@@ -39,6 +39,17 @@ def create(base: str = "smoothxg") -> str:
     return path
 
 
+def unique(prefix: str, suffix: str = "") -> str:
+    """Path of a fresh empty file in the base directory (`set_dir`),
+    named `prefix` + random characters + `suffix`, so that processes
+    sharing that directory never write one another's file.  Not
+    registered: the caller decides whether it is wiped at exit."""
+    fd, path = tempfile.mkstemp(prefix=prefix, suffix=suffix,
+                                dir=_DIR or None)
+    os.close(fd)
+    return path
+
+
 def register(path: str) -> str:
     _FILES.add(path)
     return path

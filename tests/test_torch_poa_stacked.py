@@ -81,7 +81,7 @@ def test_default_tiers_are_the_full_width_ones():
     eng = TorchPOAEngine(device="cpu", kernel="stacked")
     assert eng.kernel == "stacked"
     assert eng.tiers == tuple(t for t in TorchPOAEngine.TIERS if t[1] == t[2])
-    assert len(eng.tiers) == 4
+    assert len(eng.tiers) == 6
 
 
 def test_windowed_tier_or_caps_raise():
