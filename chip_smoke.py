@@ -758,14 +758,25 @@ def geometry_line(name: str, B: int, caps, LS: int) -> str:
     from smoothxg_tpu_torch.ops import _build
     from smoothxg_tpu_torch.ops.poa_win import geometry
     g = geometry(name, B, caps, LS)
-    key = ((g["tables"], "banded" if caps.banded else "full")
-           if name == "poa_win" else (0, g["tables"]))
-    rep = kernel_registers(_build.build_log["ptxas"]).get((name, key), "")
+    kern, key = name, (0, g["tables"])
     per_sm = ""
-    if name == "poa_win":
+    if name == "poa_win" and g["cluster"] != caps.cluster(LS):
+        fail(f"poa_win's launch of {B} blocks at V{caps.VW}xL{caps.LW}xW"
+             f"{caps.W}, LS {LS}: cluster {g['cluster']}, where the row's "
+             f"tiles are {caps.cluster(LS)}")
+    if name == "poa_win" and g["cluster"] > 1:
+        kern, key = "poa_win_cluster", (g["meta"],
+                                        "banded" if caps.banded else "full")
+        per_sm = (f", clusters of {g['cluster']} CTAs of 256 threads (one a "
+                  f"2,048-column tile of the row), row metadata in "
+                  f"{g['meta']} memory")
+    elif name == "poa_win":
         import torch
+        key = (g["tables"], "banded" if caps.banded else "full")
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        per_sm = f", {2 if B > sms else 1} blocks an SM of 256 threads"
+        per_sm = (f", cluster 1 (one CTA a POA block), {2 if B > sms else 1}"
+                  f" blocks an SM of 256 threads")
+    rep = kernel_registers(_build.build_log["ptxas"]).get((kern, key), "")
     return (f"{B} blocks at V{caps.VW}xL{caps.LW}: K {g['per_block']}, grid "
             f"{g['grid']}, tables in {g['tables']} memory, LS {LS}, "
             f"{g['smem']} B shared{per_sm}, {used(rep)} registers, "
@@ -899,7 +910,8 @@ def chase_phase(torch, dev, clock_mhz, name: str, timing: dict, pool):
 
 def block_main_path(tag: str, own: str, run, clock_mhz,
                     depth: int | None = None,
-                    records: list | None = None) -> int:
+                    records: list | None = None,
+                    stats: dict | None = None) -> int:
     """Phases 4, 9, 11 and 24: one run of the block engine's main path
     through `run` (returns (exit code, engine)), counted by `drive`; a spy
     on the engine's iterator keeps each block's sequences and final paths
@@ -911,8 +923,10 @@ def block_main_path(tag: str, own: str, run, clock_mhz,
     otherwise: no tier, or stolen), with their share of the DP cells (L0 x
     L summed over the rounds), beside the pipeline's engine, rehydrate and
     finalize seconds (depth 0: every block).  `records` receives the spy's
-    (sequences, paths, local, kind, tier, params) of every block.  Returns
-    the kernel's launches."""
+    (sequences, paths, local, kind, tier, params) of every block, `stats`
+    the engine's stats().  Each launch's start and end on the card's clock
+    (CUDA events on its lane's stream, from the run's start) show which
+    launches ran at once.  Returns the kernel's launches."""
     from smoothxg_tpu_torch.ops.poa_engine import TorchPOAEngine
     from smoothxg_tpu_torch.ops.poa_win import stride_for
     seen = []                 # (sequences, paths, local, kind, tier, params)
@@ -935,8 +949,26 @@ def block_main_path(tag: str, own: str, run, clock_mhz,
     sizes = []                # (bytes, blocks, tier) a launch
     launch = TorchPOAEngine._launch
 
-    def launch_spy(self, blocks, chunk, ti, local, banded):
-        out = launch(self, blocks, chunk, ti, local, banded)
+    import torch
+    # (tier, lane, blocks, host ms at the start event and after the launch
+    # returned, start event, end event)
+    clock = []
+    zero = torch.cuda.Event(enable_timing=True)
+    zero.record()
+    h0 = time.perf_counter()
+
+    def launch_spy(self, blocks, chunk, ti, local, banded, lane=None):
+        stream = (self._lane(lane)[0] if lane is not None
+                  and self.devices[0].type == "cuda" else None)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        if stream is not None:
+            ev[0].record(stream)
+        t_in = (time.perf_counter() - h0) * 1e3
+        out = launch(self, blocks, chunk, ti, local, banded, lane)
+        if stream is not None:
+            ev[1].record(stream)
+            clock.append((self.tiers[ti], lane, len(chunk), t_in,
+                          (time.perf_counter() - h0) * 1e3, *ev))
         for i in chunk:
             tiers[id(blocks[i][0])] = ti
         VW, LW, W = self.tiers[ti]
@@ -988,11 +1020,32 @@ def block_main_path(tag: str, own: str, run, clock_mhz,
             f"launch " + ", ".join(f"{b / 1e9:.3f}" for b, _, _ in sizes))
         if big[0] > TorchPOAEngine.SCRATCH_BUDGET and big[1] > 1:
             fail(f"{tag}: a launch of {big[1]} blocks passes the budget")
+    if clock:
+        torch.cuda.synchronize()
+        spans = [(zero.elapsed_time(a), zero.elapsed_time(b))
+                 for *_, a, b in clock]
+        union, end = 0.0, float("-inf")
+        for a, b in sorted(spans):
+            union += max(0.0, b - max(a, end))
+            end = max(end, b)
+        say(f"{tag} launches on the card's clock (ms from the run's start, "
+            f"copies in to kernel end, on the lane's stream; the host's "
+            f"clock from the start event's record to the launch's return "
+            f"in brackets): " + "; ".join(
+                f"V{t[0]}xL{t[1]}" + (f"xW{t[2]}" if t[2] < t[1] else "")
+                + f" {n} blocks, lane {lane} {a:.1f}-{b:.1f} [host "
+                  f"{hi:.1f}-{ho:.1f}]"
+                for (t, lane, n, hi, ho, *_), (a, b) in zip(clock, spans))
+            + f"; the launches' spans sum to "
+              f"{sum(b - a for a, b in spans):.1f} ms, their union "
+              f"{union:.1f} ms")
     if st["device_blocks"] < 0.9 * total:
         fail(f"{tag}: only {st['device_blocks']}/{total} blocks ran on "
              f"the GPU")
     if records is not None:
         records.extend(seen)
+    if stats is not None:
+        stats.update(st)
     return launches
 
 
@@ -1224,14 +1277,15 @@ def kernel_registers(log: str) -> dict:
     """{(kernel, template arguments): ptxas report} of the POA kernels'
     instantiations: poa_code_kernel / poa_stacked_kernel<STAGE,
     SMEM_TABLES> as (stage, 'shared' / 'device'), poa_win_kernel<
-    SMEM_TABLES, BANDED> as ('shared' / 'device', 'full' / 'banded'),
-    poa_round_kernel<RING, TSMEM> and poa_batch_kernel<RING, TSMEM> as
-    ('ring' / 'tiled', 'shared' / 'device')."""
+    SMEM_TABLES, BANDED> and poa_win_cluster_kernel<SMEM_META, BANDED> as
+    ('shared' / 'device', 'full' / 'banded'), poa_round_kernel<RING,
+    TSMEM> and poa_batch_kernel<RING, TSMEM> as ('ring' / 'tiled',
+    'shared' / 'device')."""
     import re
     out = {}
     for e, r in ptxas_registers(log).items():
-        m = re.search(r"(poa_(?:win|round|code|stacked|batch))_kernelI"
-                      r"((?:L[bi]\d+E)+)E", e)
+        m = re.search(r"(poa_(?:win_cluster|win|round|code|stacked|batch))"
+                      r"_kernelI((?:L[bi]\d+E)+)E", e)
         if not m:
             continue
         name = m[1]
@@ -1239,7 +1293,7 @@ def kernel_registers(log: str) -> dict:
         where = ("device", "shared")
         if name in ("poa_code", "poa_stacked"):
             key = (args[0], where[args[1]])
-        elif name == "poa_win":         # <SMEM_TABLES, BANDED>
+        elif name in ("poa_win", "poa_win_cluster"):
             key = (where[args[0]], ("full", "banded")[args[1]])
         else:
             key = (("tiled", "ring")[args[0]], where[args[1]])
@@ -1258,7 +1312,7 @@ def build_summary(log: str) -> str:
     regs = ptxas_registers(log)
     inst = kernel_registers(log)
     parts = []
-    for name in (*KERNELS[:4], "poa_batch"):
+    for name in (*KERNELS[:4], "poa_win_cluster", "poa_batch"):
         mine = {k: r for (n, k), r in inst.items() if n == name}
         if name in ("poa_code", "poa_stacked"):
             parts.append(
@@ -2798,9 +2852,11 @@ def long_phase(torch, dev, clock_mhz, gfa: str, pool,
                haps: int = 16) -> None:
     """Phase 25: the fused CLI at -r `haps` and LONG_FLAGS on `gfa` (a
     generator pangenome of `haps` haplotypes) once for each of LONG_BANDS,
-    each run into its own directory: every block on the
-    kernel apart from overflow redos (a block that ran natively without a
-    launch fails the phase), the blocks by tier, the device share of
+    each run into its own directory: every block on the kernel (a block
+    run natively, without a launch or after one, fails the phase; one whose
+    band passed the windowed tier's window is launched again at a
+    full-width tier), the launches on the card's clock, the blocks by
+    tier, the device share of
     blocks and DP cells, the engine, rehydrate and finalize seconds; GFA
     and MAF sha256 equal to the JAX package's CLI with --engine native at
     the same flags (subprocesses started when the phase starts); then the
@@ -2832,29 +2888,32 @@ def long_phase(torch, dev, clock_mhz, gfa: str, pool,
         picks = {}
         for band in LONG_BANDS:
             out, maf = dirs["port", band]
-            seen = []
+            seen, st = [], {}
             block_main_path(
                 f"default -l 4000 main path ({haps} x 80 kb, "
                 f"--long-poa-band {band})", "poa_win", lambda: cli.run(
                     ["-g", gfa, "-o", out, "-m", maf, *flags,
                      "--long-poa-band", band]), clock_mhz, depth=0,
-                records=seen)
+                records=seen, stats=st)
             native = [r for r in seen if r[3] == "graph" and r[4] is None]
             redone = [r for r in seen if r[3] == "graph" and r[4] is not None]
+            on_card = len(seen) - len(native) - len(redone)
             say(f"default -l 4000 ({haps} x 80 kb, --long-poa-band {band}): "
-                f"{len(seen)} "
-                f"blocks, {len(seen) - len(native) - len(redone)} on the "
-                f"kernel, fallbacks: no tier {len(native)}, overflow redo "
-                f"{len(redone)} (" + ", ".join(
+                f"{on_card} of {len(seen)} blocks on the kernel, "
+                f"{st['device_redo']} of them launched again at a full-width "
+                f"tier after their band passed the window; native: no tier "
+                f"{len(native)}, overflow redo {len(redone)} (" + ", ".join(
                     f"{len(r[0])} x {min(map(len, r[0]))}-"
                     f"{max(map(len, r[0]))} bp at V{tiers[r[4]][0]}x"
                     f"L{tiers[r[4]][1]}" for r in redone) + ")")
-            if native:
+            if native or redone:
                 fail(f"default -l 4000 ({haps} x 80 kb, --long-poa-band "
-                     f"{band}): {len(native)} blocks ran natively without a "
-                     f"launch: "
+                     f"{band}): {on_card} of {len(seen)} blocks on the card; "
+                     f"native without a launch {len(native)}, native redos "
+                     f"{len(redone)}: "
                      + ", ".join(f"{len(r[0])} x {min(map(len, r[0]))}-"
-                                 f"{max(map(len, r[0]))} bp" for r in native))
+                                 f"{max(map(len, r[0]))} bp"
+                                 for r in native + redone))
             at = [r for r in seen if r[3] == "raw" and r[4] is not None
                   and tiers[r[4]][1:] == (LONG_LW, LONG_LW)
                   and (r[5].wb >= 0) == (band != "0")]

@@ -10,7 +10,12 @@
 
 namespace {
 
-constexpr int NT = 256;               // threads per block
+// threads per block (POA_NT: a smaller block for emulation tests of the
+// tile loops, whose tile then covers NT * CPT columns)
+#ifndef POA_NT
+#define POA_NT 256
+#endif
+constexpr int NT = POA_NT;
 constexpr int CPT = 8;                // columns per thread per tile
 constexpr int TILE = NT * CPT;        // columns per tile
 constexpr int NWARP = NT / 32;

@@ -171,15 +171,22 @@ __device__ __forceinline__ int band_ranks(K& k, int V) {
 }
 
 // the band [lo, hi] of every row of a banded launch: the adaptive band
-// around the row's rank (rows stay full width, so no band overflows); an
-// unbanded fill takes [0, L] without reading a table
-__device__ __forceinline__ void band_rows_par(Tables& k, int V, int L, int w,
-                                              int D, int first, int stride) {
+// around the row's rank; returns the widest band's columns, hi - lo + 1
+// (poa_win's window must hold it; the code-chase kernels keep rows full
+// width, so no band overflows there); an unbanded fill takes [0, L]
+// without reading a table
+__device__ __forceinline__ int band_rows_par(Tables& k, int V, int L, int w,
+                                             int D, int first, int stride) {
     const int adj_l = max(0, D - L), adj_r = max(0, L - D);
+    int widest = 0;
     for (int i = 1 + first; i <= V; i += stride) {
-        k.rlo[i] = max(0, k.rmr[i] - w - adj_l);
-        k.rhi[i] = min(L, k.rMr[i] + w + adj_r);
+        const int lo = max(0, k.rmr[i] - w - adj_l);
+        const int hi = min(L, k.rMr[i] + w + adj_r);
+        k.rlo[i] = lo;
+        k.rhi[i] = hi;
+        widest = max(widest, hi - lo + 1);
     }
+    return widest;
 }
 
 // Where column j of a DP row sits in the row: in column order (poa_code)

@@ -242,13 +242,16 @@ def load() -> ctypes.CDLL:
             lib.poa_batch_geometry.restype = ci
             # (..., B, RW, LW, VW, then W, pcap, LS (poa_win) or pcap,
             # stage, LS, then local, banded, stream) and the geometry (B,
-            # VW, pcap, LS, banded, int[4])
+            # VW, (poa_win: W,) pcap, LS, banded, int[4] (poa_win: int[6]))
             for name in ("poa_win", "poa_code", "poa_stacked"):
                 getattr(lib, f"{name}_launch").argtypes = \
                     [vp] * 8 + [ci] * 9 + [vp]
                 getattr(lib, f"{name}_launch").restype = ci
-                getattr(lib, f"{name}_geometry").argtypes = [ci] * 5 + [vp]
+                getattr(lib, f"{name}_geometry").argtypes = \
+                    [ci] * (6 if name == "poa_win" else 5) + [vp]
                 getattr(lib, f"{name}_geometry").restype = ci
+            lib.poa_win_prepare.argtypes = []
+            lib.poa_win_prepare.restype = ci
             # the probes (csrc/probes.cu, smoothxg_tpu_torch/tools/_probe.py)
             lib.probe_scalar_launch.argtypes = [ci] * 4 + [vp] * 3
             lib.probe_row_launch.argtypes = [ci] * 4 + [vp] * 4

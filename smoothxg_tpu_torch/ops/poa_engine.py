@@ -4,10 +4,32 @@ Same interface as smoothxg_tpu/ops/poa_pallas_fused.FusedPallasEngine
 (windowed path): `poa_block_batch`, `poa_block_batch_iter`, `stats`,
 `warmup`.  Each block routes to the smallest tier that holds it; a chunk of
 same-variant blocks becomes one kernel launch (`poa_win` by default: one
-thread block per POA block); blocks that fit no tier, and blocks whose
-launch sets the overflow flag, run on the native C++ engine, which
-implements the same semantics — both counted in stats().  There is no
-failover: a CUDA error raises.
+thread block per POA block, or one cluster of thread blocks past one
+2,048-column tile a row).  A block whose launch at a windowed tier sets the
+overflow flag (its band passed the window) is launched again at the next
+full-width tier that holds it, where the band always fits, while the host
+consumes the first launches (`device_redo` in stats()); blocks that fit no
+tier, and blocks whose launch overflows otherwise, run on the native C++
+engine, which implements the same semantics (`fallbacks`, `redo`).  There
+is no failover: a CUDA error raises.
+
+A call's launches run at once: each chunk's copies, launch and output
+planes go on a stream of its own (a lane: one stream per device, kept by
+the engine, so the caching allocator reuses a lane's freed scratch for the
+lane's next chunk), started longest block first across tiers, so chunks of
+different tiers share the card's SMs.  What is in flight stays within
+INFLIGHT_BUDGET = 2 x SCRATCH_BUDGET = 48 GiB a device: an H100 holds
+79.6 GiB (81,559 MiB), so two full launches leave ~31 GiB for the CUDA
+context, the rest of the pipeline and the caching allocator, which keeps
+a lane's freed blocks for that lane (a larger chunk after a smaller one on
+a lane is allocated beside it).  A chunk holds its launch's bytes as
+`_tier_batch` counts them (at most SCRATCH_BUDGET, `seq_cap`), a lane the
+most of its chunks', and `_plan_lanes` opens a new lane only while the
+lanes' bytes plus the chunk's leave room for one more chunk of
+SCRATCH_BUDGET in place of the largest lane; else the chunk waits for an
+earlier one by stream order on the lane whose bytes it raises least.
+Every chunk (of at most SCRATCH_BUDGET) then keeps the sum within the
+budget, without a host wait or a device-wide synchronize.
 
 The host steal of FusedPallasEngine (on by default when `threads > 1` on
 the card): when a call holds more device-eligible blocks than `max_batch`
@@ -147,6 +169,7 @@ class TorchPOAEngine:
              (VW_MAX, 8704, 8704))
     GROWTH_CAL = GROWTH_CAL
     SCRATCH_BUDGET = 24 << 30     # bytes of DP scratch per launch
+    INFLIGHT_BUDGET = 2 * SCRATCH_BUDGET   # a device's launches at once
     # bytes of a block's sequence and path planes a (sequence slot,
     # column): int8 sequences in, int32 paths out, both (RW, LW) on the
     # card; with the DP scratch they make a launch's memory (_tier_batch)
@@ -222,7 +245,9 @@ class TorchPOAEngine:
         self.tier_blocks: dict = {}
         self.fallbacks = 0
         self.redo = 0
+        self.device_redo = 0
         self.predicted_overflow = 0
+        self._lanes: list = []    # lane: a stream per device (None: CPU)
         self.device_s = 0.0
 
     def seq_cap(self) -> int:
@@ -252,6 +277,7 @@ class TorchPOAEngine:
             "fallbacks": self.fallbacks,
             "guard_splits": self.guard_splits,
             "redo": self.redo,
+            "device_redo": self.device_redo,
             "vcap_redo": 0,
             "stolen": self.stolen,
             "predicted_overflow": self.predicted_overflow,
@@ -267,7 +293,9 @@ class TorchPOAEngine:
     def warmup(self, locals_=(True,), banded=(False,), tiers=None):
         """Build the kernel library and launch the selected kernel once
         for each requested (local, banded) variant on a one-block batch on
-        every card of `devices`, synchronizing only that card.  `tiers` is
+        every card of `devices`, synchronizing only that card; poa_win's
+        every instantiation is loaded there too (`poa_win_prepare`), so
+        that no launch beside a running one waits for a load.  `tiers` is
         accepted for FusedPallasEngine's signature: one kernel serves
         every tier."""
         cpu = pack_blocks([([np.zeros(1, np.uint8)], POAParams())], 128)
@@ -275,6 +303,12 @@ class TorchPOAEngine:
             if dev.type != "cuda":
                 continue
             with torch.cuda.device(dev):
+                if self.kernel == "win":
+                    from . import _build
+                    rc = _build.load().poa_win_prepare()
+                    if rc != 0:
+                        raise RuntimeError(f"poa_win_prepare: CUDA error "
+                                           f"{rc}")
                 ins = [x.to(dev) for x in cpu]
                 for local in locals_:
                     for bd in banded:
@@ -362,7 +396,7 @@ class TorchPOAEngine:
         thread: an event after each shard's launch, waited on by a thread
         that folds rows / seconds into the device rate."""
         events = []
-        for _, shards, _ in handles:
+        for _, shards, *_ in handles:
             for stream, outs in shards:
                 if outs[0].device.type != "cuda":
                     return
@@ -419,14 +453,56 @@ class TorchPOAEngine:
         bases and `depth` sequences: what SCRATCH_BUDGET holds of their DP
         scratch at that row stride and their sequence and path planes at
         RW = depth, capped at max_batch, on each shard's device."""
+        return len(self.devices) * max(1, min(
+            self.max_batch,
+            self.SCRATCH_BUDGET // self._block_bytes(ti, banded, maxlen,
+                                                     depth)))
+
+    def _block_bytes(self, ti: int, banded: bool, maxlen: int,
+                     depth: int) -> int:
+        """Bytes of one block on the card at tier `ti`: its DP scratch at
+        the row stride of `maxlen` and its sequence and path planes at RW
+        = `depth`."""
         VW, LW, W = self.tiers[ti]
         words = self._kernel(VW, LW, W, True, banded)[2](
             stride_for(maxlen, LW))
-        per_block = 4 * words + self.PLANE_BYTES * depth * LW
-        return len(self.devices) * max(1, min(
-            self.max_batch, self.SCRATCH_BUDGET // per_block))
+        return 4 * words + self.PLANE_BYTES * depth * LW
 
-    def _route(self, seqs, params=None) -> int | None:
+    def _plan_lanes(self, sizes) -> list[int]:
+        """The lane of each chunk of a call, given each chunk's bytes a
+        device in launch order (see the module docstring): a new lane while
+        the lanes' bytes, with the chunk's and room for one more chunk of
+        SCRATCH_BUDGET in place of the largest lane, stay within
+        INFLIGHT_BUDGET; else the lane the chunk raises least (ties: the
+        one with the fewest bytes queued), after whose chunks it runs."""
+        held: list[int] = []      # the most of a lane's chunks
+        queued: list[int] = []
+        lanes = []
+        for b in sizes:
+            top = max(held + [b])
+            if sum(held) + b + self.SCRATCH_BUDGET - top <= \
+                    self.INFLIGHT_BUDGET or not held:
+                held.append(b)
+                queued.append(b)
+                lanes.append(len(held) - 1)
+                continue
+            j = min(range(len(held)), key=lambda k: (
+                max(0, b - held[k]), queued[k]))
+            held[j] = max(held[j], b)
+            queued[j] += b
+            lanes.append(j)
+        return lanes
+
+    def _lane(self, k: int) -> list:
+        """Lane k's streams, one per device (None for a CPU device),
+        made at first use and kept."""
+        while len(self._lanes) <= k:
+            self._lanes.append([torch.cuda.Stream(d) if d.type == "cuda"
+                                else None for d in self.devices])
+        return self._lanes[k]
+
+    def _route(self, seqs, params=None, start: int = 0,
+               full: bool = False) -> int | None:
         """Smallest tier index this block fits, or None (native engine).
         The rules of FusedPallasEngine._route, less the TPU-only ones
         (15-symbol alphabet, 128-lane window quantum): every sequence fits
@@ -437,7 +513,8 @@ class TorchPOAEngine:
         whose window passes every windowed tier (a wide length spread)
         takes the first full-width tier that holds it, where its band
         always fits.  A misroute is never wrong: the kernel's overflow flag
-        redoes the block natively."""
+        redoes the block.  `start` skips the tiers before it and `full`
+        the windowed ones (a device redo's tier)."""
         if not seqs or len(seqs) > self.RW:
             return None
         lens = [len(s) for s in seqs]
@@ -447,8 +524,9 @@ class TorchPOAEngine:
         banded = params is not None and params.wb >= 0
         est = None
         fits_shape = False
-        for ti, (VW, LW, W) in enumerate(self.tiers):
-            if maxlen + 1 > LW or L0 > VW:
+        for ti in range(start, len(self.tiers)):
+            VW, LW, W = self.tiers[ti]
+            if maxlen + 1 > LW or L0 > VW or (full and W < LW):
                 continue
             if W < LW:
                 if not banded or maxlen > VW:
@@ -467,7 +545,7 @@ class TorchPOAEngine:
                 est = L0 + (raw - L0) * self.GROWTH_CAL
             if est <= VW:
                 return ti
-        if fits_shape:
+        if fits_shape and start == 0:
             self.predicted_overflow += 1
         return None
 
@@ -487,7 +565,8 @@ class TorchPOAEngine:
         rehydrate_device_raw), kind "graph" = a finished POAGraph from the
         native engine (stolen, no tier, or overflow redo).  Every chunk is
         launched before the first result is read, so host work done while
-        consuming overlaps the remaining kernels."""
+        consuming overlaps the remaining kernels; a device redo is launched
+        when its first launch is read and read after the others."""
         self._fresh = self._join_warmup()
         dev: dict[tuple, list[int]] = {}
         fb: list[int] = []
@@ -509,17 +588,27 @@ class TorchPOAEngine:
             self._fresh |= not _build.loaded()
         t_dev = time.perf_counter()
         dev_rows = 0.0
-        handles = []
+        plan = []                 # (cost of its longest block, key, chunk)
         for (local, banded, ti), idxs in dev.items():
             idxs.sort(key=lambda i: (len(blocks[i][0]),
                                      len(blocks[i][0][0])), reverse=True)
-            dev_rows += sum(self._steal_costs(blocks[i][0])[1] for i in idxs)
+            cost = [self._steal_costs(blocks[i][0])[1] for i in idxs]
+            dev_rows += sum(cost)
             cap = self._tier_batch(
                 ti, banded, max(len(s) for i in idxs for s in blocks[i][0]),
                 len(blocks[idxs[0]][0]))
             for s in range(0, len(idxs), cap):
-                handles.append(self._launch(blocks, idxs[s:s + cap], ti,
-                                            local, banded))
+                plan.append((max(cost[s:s + cap]), (local, banded, ti),
+                             idxs[s:s + cap]))
+        plan.sort(key=lambda x: x[0], reverse=True)   # longest block first
+        per_dev = len(self.devices)
+        lanes = self._plan_lanes([
+            -(-len(ch) // per_dev) * self._block_bytes(
+                ti, banded, max(len(s) for i in ch for s in blocks[i][0]),
+                max(len(blocks[i][0]) for i in ch))
+            for _, (_, banded, ti), ch in plan])
+        handles = [self._launch(blocks, ch, ti, local, banded, lane)
+                   for (_, (local, banded, ti), ch), lane in zip(plan, lanes)]
         if handles and not self._fresh:
             self._watch_device(handles, dev_rows, t_dev)
 
@@ -537,30 +626,37 @@ class TorchPOAEngine:
                 self._steal_costs(blocks[i][0])[0] for i in stolen))
         redo: list[int] = []
         redo_futs: list = []
-        for chunk, shards, maxl in handles:
-            t0 = time.perf_counter()
-            parts = wait_shards(shards)
-            meta = torch.cat([p[0].cpu() for p in parts]).numpy()
-            good = [b for b in range(len(chunk)) if meta[b, 1] == 0]
-            vmax = int(meta[good, 0].max()) if good else 0
-            exp = torch.cat([p[1][:, :, :vmax].cpu() for p in parts]).numpy()
-            paths = torch.cat([p[2][:, :, :maxl].cpu()
-                               for p in parts]).numpy()
-            self.device_s += time.perf_counter() - t0
-            h_redo = [chunk[b] for b in range(len(chunk)) if meta[b, 1]]
-            if h_redo:
-                redo.extend(h_redo)
-                redo_futs.extend(_async(h_redo))
-            for b in good:
-                i = chunk[b]
-                seqs = blocks[i][0]
-                V = int(meta[b, 0])
-                base = (exp[b, 0, :V] & 0xFF).astype(np.int32)
-                blk_paths = [paths[b, r, :len(s)] for r, s in enumerate(seqs)]
-                self.device_blocks += 1
-                self.guard_splits += int(meta[b, 3])
-                yield i, "raw", (base, exp[b, 1, :V], exp[b, 2, :V],
-                                 blk_paths, int(meta[b, 3]))
+        again = []                # the device redos' launches
+        for h in handles:
+            done, over = self._collect(blocks, h)
+            # a windowed tier's overflow: again at the next full-width
+            # tier that holds the block, on the lane just read
+            VW, LW, W = self.tiers[h[2]]
+            to: dict = {}
+            for i in over:
+                tj = self._route(blocks[i][0], blocks[i][2], h[2] + 1,
+                                 True) if W < LW else None
+                if tj is None:
+                    redo.append(i)
+                else:
+                    to.setdefault((tj, blocks[i][2].local), []).append(i)
+            if len(redo) > len(redo_futs):
+                redo_futs.extend(_async(redo[len(redo_futs):]))
+            for (tj, local), idxs in to.items():
+                self.device_redo += len(idxs)
+                cap = self._tier_batch(
+                    tj, True, max(len(s) for i in idxs for s in blocks[i][0]),
+                    max(len(blocks[i][0]) for i in idxs))
+                again.extend(self._launch(blocks, idxs[s:s + cap], tj, local,
+                                          True, h[3])
+                             for s in range(0, len(idxs), cap))
+            yield from done
+        for h in again:
+            done, over = self._collect(blocks, h)
+            if over:
+                redo.extend(over)
+                redo_futs.extend(_async(over))
+            yield from done
         for i, f in zip(stolen + fb, steal_futs + fb_futs):
             g = f()
             self.guard_splits += getattr(g, "guard_splits", 0)
@@ -571,15 +667,57 @@ class TorchPOAEngine:
             self.guard_splits += getattr(g, "guard_splits", 0)
             yield i, "graph", g
 
-    def _launch(self, blocks, chunk, ti: int, local: bool, banded: bool):
+    def _collect(self, blocks, handle):
+        """Wait for a launch's streams and read its outputs: ([(index,
+        "raw", payload)] of its good blocks, [indices of its overflowed
+        ones])."""
+        chunk, shards, _, _, maxl = handle
+        t0 = time.perf_counter()
+        parts = wait_shards(shards)
+
+        def read(k, x):           # on the shard's own stream
+            if shards[k][0] is None:
+                return x.cpu()
+            with torch.cuda.stream(shards[k][0]):
+                return x.cpu()
+
+        meta = torch.cat([read(k, p[0]) for k, p in enumerate(parts)])
+        meta = meta.numpy()
+        good = [b for b in range(len(chunk)) if meta[b, 1] == 0]
+        vmax = int(meta[good, 0].max()) if good else 0
+        exp = torch.cat([read(k, p[1][:, :, :vmax])
+                         for k, p in enumerate(parts)]).numpy()
+        paths = torch.cat([read(k, p[2][:, :, :maxl])
+                           for k, p in enumerate(parts)]).numpy()
+        self.device_s += time.perf_counter() - t0
+        done = []
+        for b in good:
+            i = chunk[b]
+            seqs = blocks[i][0]
+            V = int(meta[b, 0])
+            base = (exp[b, 0, :V] & 0xFF).astype(np.int32)
+            blk_paths = [paths[b, r, :len(s)] for r, s in enumerate(seqs)]
+            self.device_blocks += 1
+            self.guard_splits += int(meta[b, 3])
+            done.append((i, "raw", (base, exp[b, 1, :V], exp[b, 2, :V],
+                                    blk_paths, int(meta[b, 3]))))
+        return done, [chunk[b] for b in range(len(chunk)) if meta[b, 1]]
+
+    def _launch(self, blocks, chunk, ti: int, local: bool, banded: bool,
+                lane: int | None = None):
+        """Launch a chunk's blocks at tier `ti` (on lane `lane`'s streams
+        when given); returns its handle (chunk, shards, tier, lane, the
+        longest sequence)."""
         VW, LW, W = self.tiers[ti]
         ins = pack_blocks([(blocks[i][0], blocks[i][2]) for i in chunk], LW)
         maxl = int(ins[1].max())
         kern, caps, _ = self._kernel(VW, LW, W, local, banded)
+        streams = (self._lane(lane) if lane is not None and
+                   any(d.type == "cuda" for d in self.devices) else None)
         shards = launch_shards(self.devices, lambda *x: kern(*x, caps),
-                               list(ins))
+                               list(ins), streams=streams)
         self.kernel_launches += sum(d.type == "cuda" for d in self.devices
                                     [:len(shards)])
         self.calls += 1
         self.tier_blocks[ti] = self.tier_blocks.get(ti, 0) + len(chunk)
-        return chunk, shards, maxl
+        return chunk, shards, ti, lane, maxl

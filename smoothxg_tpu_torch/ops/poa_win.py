@@ -66,6 +66,12 @@ RING_CAP = 8
 # sequences overflowed to the native engine, at 8 none (chip smoke phase 24)
 PCAP = 8
 VW_MAX = 32766     # node ids and rows are int16 in the kernels' tables
+# columns of a DP row one thread block fills at a time (csrc/poa_common.cuh:
+# 256 threads x 8 columns); poa_win fills a stored row past one tile on a
+# cluster of thread blocks, one a tile, up to CLUSTER_MAX (the card's
+# non-portable limit: rows to 32,768 columns)
+TILE = 2048
+CLUSTER_MAX = 16
 
 
 def table_bytes(VW: int, pcap: int, LS: int, banded: bool) -> int:
@@ -94,14 +100,26 @@ class WinCaps:
     banded: bool
     pcap: int = PCAP     # predecessor slots per node
 
+    def stored(self, LS: int) -> int:
+        """Stored columns of a DP row at row stride LS: LS at full
+        width, else the window W rounded up to 8 (csrc/poa_win.cu:
+        row_stride)."""
+        return (self.W + 7) & ~7 if self.banded else LS
+
     def scratch_words(self, LS: int) -> int:
         """int32 words of per-block scratch at row stride LS: the graph
-        tables, then the four DP planes H, Hq, E1, E2 at 16 B a cell, rows
-        of LS columns at full width, else of the window W rounded up to 8
-        (csrc/poa_win.cu:block_bytes)."""
-        cols = (self.W + 7) & ~7 if self.banded else LS
+        tables, then the four DP planes H, Hq, E1, E2 at 16 B a cell
+        (csrc/poa_win.cu:block_bytes).  The cluster route needs none
+        more: its hand-offs go through shared memory."""
         return (table_bytes(self.VW, self.pcap, LS, self.banded)
-                + 16 * (self.VW + 1) * cols) // 4
+                + 16 * (self.VW + 1) * self.stored(LS)) // 4
+
+    def cluster(self, LS: int, tile: int = TILE) -> int:
+        """Thread blocks a POA block runs on at row stride LS: 1 (one
+        thread block, tile after tile) for stored rows of one tile, else
+        one a tile (the cluster route; csrc/poa_win.cu:cluster_size)."""
+        s = self.stored(LS)
+        return -(-s // tile) if s > tile else 1
 
 
 def pack_blocks(blocks, LW: int):
@@ -156,6 +174,10 @@ def poa_win(seqs: torch.Tensor, slen: torch.Tensor, nseq: torch.Tensor,
         return poa_win_reference(seqs, slen, nseq, params, caps)
     check_nodes(caps)
     LS = row_stride(slen, caps.LW)
+    if caps.cluster(LS) > CLUSTER_MAX:
+        raise ValueError(f"poa_win stores rows of at most {CLUSTER_MAX} "
+                         f"tiles ({CLUSTER_MAX * TILE} columns): "
+                         f"{caps.stored(LS)}")
     out = launch("poa_win", seqs, slen, nseq, params, caps,
                  caps.scratch_words(LS), caps.W, caps.pcap, LS)
     poa_win.launches += 1
@@ -181,19 +203,23 @@ def row_stride(slen: torch.Tensor, LW: int) -> int:
 def geometry(name: str, B: int, caps, LS: int) -> dict:
     """The launch geometry lib.<name>_geometry gives a whole-block kernel's
     launch of B blocks at `caps` and row stride LS on the current CUDA
-    device: POA blocks per thread block, grid, dynamic shared bytes, and
-    where the graph tables sit ("shared" or "device")."""
+    device: POA blocks per thread block, grid, dynamic shared bytes, where
+    the graph tables sit ("shared" or "device"), thread blocks a POA block
+    (`cluster`: poa_win's cluster route past one tile, else 1) and where
+    the cluster route keeps its row metadata."""
     import ctypes
     from . import _build
     lib = _build.load()
-    out = (ctypes.c_int * 4)()
-    rc = getattr(lib, f"{name}_geometry")(B, caps.VW, caps.pcap, LS,
+    out = (ctypes.c_int * 6)(0, 0, 0, 0, 1, 0)
+    shape = (caps.VW, caps.W) if name == "poa_win" else (caps.VW,)
+    rc = getattr(lib, f"{name}_geometry")(B, *shape, caps.pcap, LS,
                                           int(caps.banded), out)
     if rc != 0:
         raise RuntimeError(f"{name} geometry: CUDA error {rc} "
                            f"({lib.poa_win_error_string(rc).decode()})")
     return {"per_block": out[0], "grid": out[1], "smem": out[2],
-            "tables": "shared" if out[3] else "device", "LS": LS}
+            "tables": "shared" if out[3] else "device", "LS": LS,
+            "cluster": out[4], "meta": "shared" if out[5] else "device"}
 
 
 def launch(name: str, seqs, slen, nseq, params, caps, words: int, *extra):

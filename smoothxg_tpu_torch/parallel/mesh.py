@@ -51,11 +51,13 @@ def init_distributed(coordinator: str | None = None,
                        timeout_s)
 
 
-def launch_shards(devices, fn, inputs, dims=None) -> list:
+def launch_shards(devices, fn, inputs, dims=None, streams=None) -> list:
     """Cut every input along its block axis (`dims`, 0 by default) into
     contiguous shards, one per device, and call fn(*shard) on each device:
-    with one device on its current stream, with more on a stream of its
-    own each.  Returns [(stream or None, fn's outputs)] without waiting."""
+    on `streams[k]` for device k when given (its copies, launch and
+    outputs), else with one device on its current stream and with more on
+    a stream of its own each.  Returns [(stream or None, fn's outputs)]
+    without waiting."""
     devices = [torch.device(d) for d in devices]
     dims = dims or [0] * len(inputs)
     for x in inputs:
@@ -73,12 +75,12 @@ def launch_shards(devices, fn, inputs, dims=None) -> list:
             continue
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        if len(devices) == 1:
+        if streams is None and len(devices) == 1:
             with torch.cuda.device(dev):
                 out.append((None, fn(*(x.to(dev).contiguous()
                                        for x in xs))))
             continue
-        stream = torch.cuda.Stream(dev)
+        stream = streams[k] if streams is not None else torch.cuda.Stream(dev)
         with torch.cuda.device(dev), torch.cuda.stream(stream):
             out.append((stream, fn(*(x.to(dev).contiguous() for x in xs))))
     return out

@@ -55,7 +55,9 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
+constexpr int cudaErrorInvalidConfiguration = 9;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+constexpr int cudaFuncAttributeNonPortableClusterSizeAllowed = 12;
 constexpr int cudaDevAttrMultiProcessorCount = 16;
 constexpr int cudaDevAttrMaxSharedMemoryPerBlockOptin = 97;
 constexpr int cudaDevAttrMaxSharedMemoryPerMultiprocessor = 81;
@@ -72,6 +74,9 @@ namespace emu {
 inline int sms = 132, smem_block = 232448, smem_sm = 233472;
 inline int opt_in = 0;
 inline int static_smem = 512;
+// clusters past the portable 8 blocks, once a kernel allowed them (the
+// card's limit is then 16)
+inline bool nonportable = false;
 inline int error = cudaSuccess;
 }  // namespace emu
 
@@ -81,6 +86,8 @@ inline int cudaFuncSetAttribute(F, int attr, int value) {
         if (value > emu::smem_block) return cudaErrorInvalidValue;
         emu::opt_in = value;
     }
+    if (attr == cudaFuncAttributeNonPortableClusterSizeAllowed)
+        emu::nonportable = value != 0;
     return cudaSuccess;
 }
 struct cudaFuncAttributes {
@@ -296,7 +303,7 @@ template <typename K, typename... A>
 void launch_cluster(unsigned grid, unsigned block, size_t smem,
                     unsigned csize, K kernel, A... args) {
     if (refused(block, smem) || csize == 0 || grid % csize != 0 ||
-        csize > 8) {
+        csize > (nonportable ? 16u : 8u)) {
         error = cudaErrorInvalidValue;
         return;
     }
@@ -360,6 +367,28 @@ inline int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
     const int e = emu::error;
     emu::error = cudaSuccess;
     return e;
+}
+
+// clusters of the launch's shape the emulated card holds at once: its SMs'
+// blocks by threads and shared memory, a cluster's blocks on as many SMs
+template <typename F>
+inline int cudaOccupancyMaxActiveClusters(int* n, F kernel,
+                                          const cudaLaunchConfig_t* cfg) {
+    unsigned csize = 1;
+    for (unsigned i = 0; i < cfg->numAttrs; ++i)
+        if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+            csize = cfg->attrs[i].val.clusterDim.x;
+    if (emu::refused(cfg->blockDim.x, cfg->dynamicSmemBytes) ||
+        csize > (emu::nonportable ? 16u : 8u)) {
+        emu::error = cudaSuccess;
+        *n = 0;
+        return cudaSuccess;
+    }
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, (int)cfg->blockDim.x, cfg->dynamicSmemBytes);
+    *n = emu::sms >= (int)csize ? per_sm * (emu::sms / (int)csize) : 0;
+    return cudaSuccess;
 }
 
 // cooperative_groups' cluster: its barrier, the block's rank, and another

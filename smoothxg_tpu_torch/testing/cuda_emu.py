@@ -76,13 +76,13 @@ int main(int argc, char** argv) {
                           meta.data(), exp_.data(), paths.data(),
                           scratch.data(), B, RW, LW, VW, EXTRA local,
                           banded, nullptr);
-    int geo[4] = {0, 0, 0, 0};
+    int geo[6] = {0, 0, 0, 0, 1, 0};
     GEOMETRY
     f = std::fopen(argv[2], "wb");
     std::fwrite(meta.data(), 4, meta.size(), f);
     std::fwrite(exp_.data(), 4, exp_.size(), f);
     std::fwrite(paths.data(), 4, paths.size(), f);
-    std::fwrite(geo, 4, 4, f);
+    std::fwrite(geo, 4, 6, f);
     std::fclose(f);
     return rc;
 }
@@ -397,7 +397,9 @@ def build(name: str, workdir: str, defines=(), sanitize=None,
         # code-chase kernels take a profiling stage after it; all take the
         # row stride and report their geometry
         extra = "W, pcap, LS," if name == "poa_win" else "pcap, stage, LS,"
-        geo = f"if (B > 0) {name}_geometry(B, VW, pcap, LS, banded, geo);"
+        shape = "VW, W," if name == "poa_win" else "VW,"
+        geo = (f"if (B > 0) {name}_geometry(B, {shape} pcap, LS, banded, "
+               f"geo);")
         main = (f"\n#define LAUNCH {name}_launch\n#define EXTRA {extra}\n"
                 f"#define GEOMETRY {geo}\n" + _MAIN)
     cpp = os.path.join(workdir, f"{name}_emu.cpp")
@@ -449,7 +451,8 @@ def run_geometry(exe: str, seqs, slen, nseq, params, caps, words: int,
                             .reshape(B, RW, LW).copy()))
     g = raw[n1 + n2 + n3:].tolist()
     return out, {"per_block": g[0], "grid": g[1], "smem": g[2],
-                 "tables": "shared" if g[3] else "device"}
+                 "tables": "shared" if g[3] else "device", "cluster": g[4],
+                 "meta": "shared" if g[5] else "device"}
 
 
 def run(exe: str, seqs, slen, nseq, params, caps, words: int,

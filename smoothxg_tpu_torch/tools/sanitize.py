@@ -55,6 +55,7 @@ HOST_TESTS = ["tests/test_torch_pipeline.py",
               "tests/test_torch_sgd.py::test_auto_routes_by_term_updates"]
 # the emulation tests of the ten kernel sources
 EMU_TESTS = ["tests/test_torch_kernel_emu.py", "tests/test_torch_chase_emu.py",
+             "tests/test_torch_win_cluster_emu.py",
              "tests/test_torch_round_emu.py", "tests/test_torch_batch_emu.py",
              "tests/test_torch_probes.py::test_kernel_source_matches_plain_version",
              "tests/test_torch_sgd.py", "tests/test_torch_minhash.py",
@@ -62,7 +63,8 @@ EMU_TESTS = ["tests/test_torch_kernel_emu.py", "tests/test_torch_chase_emu.py",
 EMU_FILTER = "emu or emulated or source"
 TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 # the library's kernels (csrc/*.cu); compute-sanitizer checks these only
-KERNELS = ("poa_win_kernel", "poa_code_kernel", "poa_stacked_kernel",
+KERNELS = ("poa_win_kernel", "poa_win_cluster_kernel", "poa_code_kernel",
+           "poa_stacked_kernel",
            "poa_round_kernel", "poa_batch_kernel", "sgd_plan_kernel",
            "sgd_chain_kernel", "minhash_hash_kernel", "minhash_inter_kernel",
            "minhash_inter_long_kernel", "ident_warp_kernel",

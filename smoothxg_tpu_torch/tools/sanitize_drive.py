@@ -7,7 +7,8 @@ testing/guard_alloc.cu.
     python -m smoothxg_tpu_torch.tools.sanitize_drive [--guard LIB]
         [--pytest ARGS...]
 
-The entries (ENTRIES): poa_win local, global and banded; poa_code and
+The entries (ENTRIES): poa_win local, global and banded, on one CTA and
+on its cluster route (rows past one tile); poa_code and
 poa_stacked with their graph tables in shared and in device memory;
 poa_round's ring and tiled routes; poa_batch's ring and tiled routes with
 its row tables in shared and in device memory; sgd_plan and the sgd
@@ -103,9 +104,11 @@ def cover(dev, seen: set, want: set, what: str) -> None:
 
 def _win(dev):
     from ..ops.poa_host import POAParams
-    from ..ops.poa_win import WinCaps, pack_blocks, poa_win, poa_win_reference
+    from ..ops.poa_win import (WinCaps, geometry, pack_blocks, poa_win,
+                               poa_win_reference, row_stride)
     from ..testing.synth import make_block
     rng = np.random.default_rng(SEED)
+    seen = set()
     for local, banded in ((True, False), (False, False), (False, True)):
         p = POAParams(1, 4, 6, 2, 26, 1, local=local,
                       wb=40 if banded else -1)
@@ -116,6 +119,24 @@ def _win(dev):
         caps = WinCaps(VW, LW, W, local, banded)
         hold(f"poa_win local={local} banded={banded}",
              poa_win(*on(dev, ins), caps), poa_win_reference(*ins, caps))
+        if dev.type == "cuda":
+            seen.add(geometry("poa_win", 3, caps,
+                              row_stride(ins[1], LW))["cluster"])
+    # rows past one 2,048-column tile: the cluster route (a 2,100-base
+    # sequence against a short graph, so few rows), full width and banded
+    for local, banded in ((True, False), (False, True)):
+        sq = make_block(rng, 2140, 3, 0.02)
+        p = POAParams(1, 4, 6, 2, 26, 1, local=local,
+                      wb=100 if banded else -1)
+        ins = pack_blocks([([sq[0][:100], sq[1][:100], sq[2][:2100]], p)],
+                          2304)
+        caps = WinCaps(4096, 2304, 2304, local, banded)
+        hold(f"poa_win cluster route local={local} banded={banded}",
+             poa_win(*on(dev, ins), caps), poa_win_reference(*ins, caps))
+        if dev.type == "cuda":
+            seen.add(geometry("poa_win", 1, caps,
+                              row_stride(ins[1], 2304))["cluster"])
+    cover(dev, seen, {1, 2}, "poa_win clusters")
 
 
 def _chase(name):
@@ -332,7 +353,8 @@ def _probes(dev):
 
 # name, the wrappers it must launch, fn
 ENTRIES = [
-    ("poa_win: local, global, banded", ("poa_win",), _win),
+    ("poa_win: local, global, banded, one CTA and clusters", ("poa_win",),
+     _win),
     ("poa_code: tables in shared and in device memory", ("poa_code",),
      _chase("poa_code")),
     ("poa_stacked: tables in shared and in device memory", ("poa_stacked",),

@@ -26,6 +26,10 @@ Cases, each the fastest of `reps` launches after a warm one (CUDA events):
     L4000b the default band's banded block whose window passes the
            windowed tier's 3,072 columns (15 sequences of 1,100-4,546
            bases, global, banded) at the same full-width tier
+    T3072  the wide block (above) at (6144, 3072), so that the three cases
+           of poa_win's cluster route run in one call beside native
+  (each long case's line gives poa_win's route: its cluster size, 1 for
+  the one-CTA kernel, and where its row metadata sits)
   round kernel (poa_round):
     task   the chip smoke's phase-6 timing task (a ~1 kb local query
            against a graph of seven ~1 kb sequences, V ~ 1,220)
@@ -260,9 +264,12 @@ def long_blocks() -> dict:
 
 def long_cases(label: str, dev, reps: int, blocks: dict) -> dict:
     """A whole-block kernel, or the native engine (`native`, host wall,
-    the fastest of `reps` calls), on each long block at LONG_CAPS."""
+    the fastest of `reps` calls), on each long block at its caps
+    (LONG_CAPS, T3072's WIDE_CAPS)."""
     row = {}
     for case, (sq, w, p) in blocks.items():
+        caps = WIDE_CAPS if case == "T3072" else LONG_CAPS
+        route = ""
         if label == "native":
             from ..ops.poa_native import NativePOAEngine
             eng = NativePOAEngine()
@@ -279,18 +286,24 @@ def long_cases(label: str, dev, reps: int, blocks: dict) -> dict:
             from ..ops.poa_win import pack_blocks
             from ._probe import measure
             kern, mkcaps = block_kernel(label)
-            ins = [x.to(dev) for x in pack_blocks([(sq, p)], LONG_CAPS[1])]
-            c = mkcaps(*LONG_CAPS, p.local, p.wb >= 0)
+            cpu = pack_blocks([(sq, p)], caps[1])
+            ins = [x.to(dev) for x in cpu]
+            c = mkcaps(*caps, p.local, p.wb >= 0)
             out = kern(*ins, c)
             if int(out[0][0, 1]):
                 raise SystemExit(f"{label} {case}: the block overflows "
-                                 f"{LONG_CAPS}")
+                                 f"{caps}")
+            if label == "poa_win":
+                from ..ops.poa_win import geometry, row_stride
+                g = geometry(label, 1, c, row_stride(cpu[1], caps[1]))
+                route = (f", cluster {g['cluster']}, row metadata in "
+                         f"{g['meta']} memory")
             row[case] = {"ms": measure(lambda: kern(*ins, c), reps),
                          "digest": digest(out), "V": int(out[0][0, 0])}
             del ins, out
             torch.cuda.empty_cache()
         where = ("one core" if label == "native"
-                 else f"V{LONG_CAPS[0]}xL{LONG_CAPS[1]}")
+                 else f"V{caps[0]}xL{caps[1]}{route}")
         print(f"{label} {case} ({len(sq)} sequences of {min(map(len, sq))}"
               f"-{max(map(len, sq))}, {'local' if p.local else 'global'}"
               f"{', banded' if p.wb >= 0 else ''}, V {row[case]['V']} on "
@@ -381,7 +394,9 @@ def main(argv=None) -> int:
         return 1
     name, smi, mhz = card()
     if long:
+        from ..ops.poa_host import POAParams
         blocks = long_blocks()
+        blocks["T3072"] = (wide_block(), [1] * 16, POAParams(local=True))
         res = {n: long_cases(n, dev, reps, blocks) for n in names}
     else:
         res = {n: round_cases(dev, reps) if n == "poa_round"

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the GPU: each kernel (poa_win, poa_round,
+"""The port's CUDA kernels on the GPU: each kernel (poa_win on one thread
+block and on its cluster route, poa_round,
 poa_batch, poa_code and poa_stacked at every profiling stage, the four probe
 families of csrc/probes.cu, sgd.cu, minhash.cu's two entries, ident.cu
 and autocorr.cu's pack and count kernels on every route) against its
@@ -66,6 +67,26 @@ def test_kernel_matches_plain_version(cuda_device, local, banded):
     assert poa_win.launches == before + 1
     want = poa_win_reference(*ins, caps)
     assert int(want[0][:, 1].sum()) == 0, "fixture overflows"
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("local,banded", [(True, False), (False, True)])
+def test_cluster_route_matches_plain_version(cuda_device, local, banded):
+    """Rows past one 2,048-column tile: a 2,100-base sequence against a
+    short graph runs on 2-CTA clusters, full width and banded (a window of
+    2,304 columns), equal to the plain version."""
+    from smoothxg_tpu_torch.ops.poa_win import geometry, row_stride
+    rng = np.random.default_rng(31)
+    sq = make_block(rng, 2140, 3, 0.02)
+    p = POAParams(1, 4, 6, 2, 26, 1, local=local, wb=100 if banded else -1)
+    ins = pack_blocks([([sq[0][:100], sq[1][:100], sq[2][:2100]], p)], 2304)
+    caps = WinCaps(4096, 2304, 2304, local, banded)
+    geo = geometry("poa_win", 1, caps, row_stride(ins[1], 2304))
+    assert geo["cluster"] == 2
+    got = poa_win(*(x.to(cuda_device) for x in ins), caps)
+    want = poa_win_reference(*ins, caps)
+    assert int(want[0][0, 1]) == 0, "fixture overflows"
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
 

@@ -115,7 +115,8 @@ def test_stats_keys_extend_the_pallas_engine():
     pal = FusedPallasEngine(shape=(512, 256), max_seqs=16, max_batch=4,
                             interpret=True)
     eng = TorchPOAEngine(device="cpu")
-    assert set(eng.stats()) == set(pal.stats()) | {"kernel_launches"}
+    assert set(eng.stats()) == set(pal.stats()) | {"kernel_launches",
+                                                   "device_redo"}
 
 
 def test_cuda_engine_refuses_to_run_without_cuda(monkeypatch):
