@@ -150,6 +150,7 @@ import torch
 
 from ..device import resolve
 from ..parallel.mesh import launch_shards, wait_shards
+from ..utils.spans import span
 from . import poa_native
 from .poa_code import CodeCaps, poa_code
 from .poa_fused import FusedHostEngine
@@ -249,6 +250,7 @@ class TorchPOAEngine:
         self.predicted_overflow = 0
         self._lanes: list = []    # lane: a stream per device (None: CPU)
         self.device_s = 0.0
+        self.copy_bytes = 0       # bytes _collect read back from launches
 
     def seq_cap(self) -> int:
         """The default sequence cap: the depth at which one block's
@@ -282,6 +284,7 @@ class TorchPOAEngine:
             "stolen": self.stolen,
             "predicted_overflow": self.predicted_overflow,
             "device_wait_s": round(self.device_s, 3),
+            "copy_bytes": self.copy_bytes,
             # one rate: the port's tiers stack no blocks (K = 1)
             "dev_rows_per_s": round(self._dev_rows_ps),
             "dev_block_rows_per_s": round(self._dev_rows_ps),
@@ -567,6 +570,83 @@ class TorchPOAEngine:
         launched before the first result is read, so host work done while
         consuming overlaps the remaining kernels; a device redo is launched
         when its first launch is read and read after the others."""
+        # spans (utils/spans.py): engine.launch, .wait, .copy and .host
+        # each close before a yield, so the consumer's work between yields
+        # falls outside them
+        with span("engine.launch"):
+            handles, fb, stolen = self._start(blocks)
+
+        def _async(idxs):
+            batch = [blocks[i] for i in idxs]
+            if hasattr(self.fallback, "poa_block_batch_async"):
+                return self.fallback.poa_block_batch_async(batch)
+            return [lambda g=g: g for g in self.fallback.poa_block_batch(
+                batch)]
+
+        with span("engine.host"):
+            fb_futs = _async(fb) if fb else []
+            steal_futs = _async(stolen) if stolen else []
+            if stolen and self.threads > 1:
+                self._watch_host(steal_futs, sum(
+                    self._steal_costs(blocks[i][0])[0] for i in stolen))
+        redo: list[int] = []
+        redo_futs: list = []
+        again = []                # the device redos' launches
+        for h in handles:
+            done, over = self._collect(blocks, h)
+            to: dict = {}
+            if over:
+                # a windowed tier's overflow: again at the next full-width
+                # tier that holds the block, on the lane just read
+                with span("engine.launch"):
+                    VW, LW, W = self.tiers[h[2]]
+                    for i in over:
+                        tj = self._route(blocks[i][0], blocks[i][2],
+                                         h[2] + 1, True) if W < LW else None
+                        if tj is None:
+                            redo.append(i)
+                        else:
+                            to.setdefault((tj, blocks[i][2].local),
+                                          []).append(i)
+            if len(redo) > len(redo_futs):
+                with span("engine.host"):
+                    redo_futs.extend(_async(redo[len(redo_futs):]))
+            if to:
+                with span("engine.launch"):
+                    for (tj, local), idxs in to.items():
+                        self.device_redo += len(idxs)
+                        cap = self._tier_batch(
+                            tj, True,
+                            max(len(s) for i in idxs for s in blocks[i][0]),
+                            max(len(blocks[i][0]) for i in idxs))
+                        again.extend(
+                            self._launch(blocks, idxs[s:s + cap], tj, local,
+                                         True, h[3])
+                            for s in range(0, len(idxs), cap))
+            yield from done
+        for h in again:
+            done, over = self._collect(blocks, h)
+            if over:
+                redo.extend(over)
+                with span("engine.host"):
+                    redo_futs.extend(_async(over))
+            yield from done
+        for i, f in zip(stolen + fb, steal_futs + fb_futs):
+            with span("engine.host"):
+                g = f()
+                self.guard_splits += getattr(g, "guard_splits", 0)
+            yield i, "graph", g
+        self.redo += len(redo)
+        for i, f in zip(redo, redo_futs):
+            with span("engine.host"):
+                g = f()
+                self.guard_splits += getattr(g, "guard_splits", 0)
+            yield i, "graph", g
+
+    def _start(self, blocks):
+        """Route a call's blocks, plan its chunks and launch them: (the
+        launches' handles, the blocks no tier holds, the blocks stolen for
+        the host pool)."""
         self._fresh = self._join_warmup()
         dev: dict[tuple, list[int]] = {}
         fb: list[int] = []
@@ -611,61 +691,7 @@ class TorchPOAEngine:
                    for (_, (local, banded, ti), ch), lane in zip(plan, lanes)]
         if handles and not self._fresh:
             self._watch_device(handles, dev_rows, t_dev)
-
-        def _async(idxs):
-            batch = [blocks[i] for i in idxs]
-            if hasattr(self.fallback, "poa_block_batch_async"):
-                return self.fallback.poa_block_batch_async(batch)
-            return [lambda g=g: g for g in self.fallback.poa_block_batch(
-                batch)]
-
-        fb_futs = _async(fb) if fb else []
-        steal_futs = _async(stolen) if stolen else []
-        if stolen and self.threads > 1:
-            self._watch_host(steal_futs, sum(
-                self._steal_costs(blocks[i][0])[0] for i in stolen))
-        redo: list[int] = []
-        redo_futs: list = []
-        again = []                # the device redos' launches
-        for h in handles:
-            done, over = self._collect(blocks, h)
-            # a windowed tier's overflow: again at the next full-width
-            # tier that holds the block, on the lane just read
-            VW, LW, W = self.tiers[h[2]]
-            to: dict = {}
-            for i in over:
-                tj = self._route(blocks[i][0], blocks[i][2], h[2] + 1,
-                                 True) if W < LW else None
-                if tj is None:
-                    redo.append(i)
-                else:
-                    to.setdefault((tj, blocks[i][2].local), []).append(i)
-            if len(redo) > len(redo_futs):
-                redo_futs.extend(_async(redo[len(redo_futs):]))
-            for (tj, local), idxs in to.items():
-                self.device_redo += len(idxs)
-                cap = self._tier_batch(
-                    tj, True, max(len(s) for i in idxs for s in blocks[i][0]),
-                    max(len(blocks[i][0]) for i in idxs))
-                again.extend(self._launch(blocks, idxs[s:s + cap], tj, local,
-                                          True, h[3])
-                             for s in range(0, len(idxs), cap))
-            yield from done
-        for h in again:
-            done, over = self._collect(blocks, h)
-            if over:
-                redo.extend(over)
-                redo_futs.extend(_async(over))
-            yield from done
-        for i, f in zip(stolen + fb, steal_futs + fb_futs):
-            g = f()
-            self.guard_splits += getattr(g, "guard_splits", 0)
-            yield i, "graph", g
-        self.redo += len(redo)
-        for i, f in zip(redo, redo_futs):
-            g = f()
-            self.guard_splits += getattr(g, "guard_splits", 0)
-            yield i, "graph", g
+        return handles, fb, stolen
 
     def _collect(self, blocks, handle):
         """Wait for a launch's streams and read its outputs: ([(index,
@@ -673,7 +699,8 @@ class TorchPOAEngine:
         ones])."""
         chunk, shards, _, _, maxl = handle
         t0 = time.perf_counter()
-        parts = wait_shards(shards)
+        with span("engine.wait"):
+            parts = wait_shards(shards)
 
         def read(k, x):           # on the shard's own stream
             if shards[k][0] is None:
@@ -681,26 +708,29 @@ class TorchPOAEngine:
             with torch.cuda.stream(shards[k][0]):
                 return x.cpu()
 
-        meta = torch.cat([read(k, p[0]) for k, p in enumerate(parts)])
-        meta = meta.numpy()
-        good = [b for b in range(len(chunk)) if meta[b, 1] == 0]
-        vmax = int(meta[good, 0].max()) if good else 0
-        exp = torch.cat([read(k, p[1][:, :, :vmax])
-                         for k, p in enumerate(parts)]).numpy()
-        paths = torch.cat([read(k, p[2][:, :, :maxl])
-                           for k, p in enumerate(parts)]).numpy()
-        self.device_s += time.perf_counter() - t0
-        done = []
-        for b in good:
-            i = chunk[b]
-            seqs = blocks[i][0]
-            V = int(meta[b, 0])
-            base = (exp[b, 0, :V] & 0xFF).astype(np.int32)
-            blk_paths = [paths[b, r, :len(s)] for r, s in enumerate(seqs)]
-            self.device_blocks += 1
-            self.guard_splits += int(meta[b, 3])
-            done.append((i, "raw", (base, exp[b, 1, :V], exp[b, 2, :V],
-                                    blk_paths, int(meta[b, 3]))))
+        with span("engine.copy"):
+            meta = torch.cat([read(k, p[0]) for k, p in enumerate(parts)])
+            meta = meta.numpy()
+            good = [b for b in range(len(chunk)) if meta[b, 1] == 0]
+            vmax = int(meta[good, 0].max()) if good else 0
+            exp = torch.cat([read(k, p[1][:, :, :vmax])
+                             for k, p in enumerate(parts)]).numpy()
+            paths = torch.cat([read(k, p[2][:, :, :maxl])
+                               for k, p in enumerate(parts)]).numpy()
+            self.device_s += time.perf_counter() - t0
+            self.copy_bytes += meta.nbytes + exp.nbytes + paths.nbytes
+            done = []
+            for b in good:
+                i = chunk[b]
+                seqs = blocks[i][0]
+                V = int(meta[b, 0])
+                base = (exp[b, 0, :V] & 0xFF).astype(np.int32)
+                blk_paths = [paths[b, r, :len(s)]
+                             for r, s in enumerate(seqs)]
+                self.device_blocks += 1
+                self.guard_splits += int(meta[b, 3])
+                done.append((i, "raw", (base, exp[b, 1, :V], exp[b, 2, :V],
+                                        blk_paths, int(meta[b, 3]))))
         return done, [chunk[b] for b in range(len(chunk)) if meta[b, 1]]
 
     def _launch(self, blocks, chunk, ti: int, local: bool, banded: bool,

@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 from ..graph.index import FlatIndex
 from ..io.gfa import read_gfa, write_gfa
 from ..ops.poa_host import POAParams
+from ..utils import spans
 from ..utils.progress import Log, phase
 from .blocks import smoothable_blocks
 from .breaks import break_blocks
@@ -153,7 +154,13 @@ def run_smoothing(cfg: Config, device: str | torch.device = "cuda",
                   engine=None):
     """Run the full multi-iteration smoothing pipeline with the port's
     engine (`engine`, else the one cfg.engine names, on `device`).
-    Returns (final gfa path, consensus path names, engine)."""
+    Returns (final gfa path, consensus path names, engine).  The call is
+    one job of the port's spans (utils/spans.py): its root span, `job`."""
+    with spans.job():
+        return _run_smoothing(cfg, device, engine)
+
+
+def _run_smoothing(cfg: Config, device, engine):
     targets = list(cfg.poa_length_targets)
     n_iters = len(targets)
     path_input = cfg.gfa_in

@@ -32,6 +32,7 @@ from ..ops.poa_graph import POAGraph
 from ..ops.poa_host import POAParams
 from ..utils.dna import encode_seq, revcomp
 from ..utils.progress import Log
+from ..utils.spans import span
 
 GAP = ord("-")
 
@@ -295,25 +296,26 @@ def smooth_blocks(
                            f"(max rounds {max_rounds})")
         return results
 
-    if threads > 1 and len(prepped) >= 2 * threads:
-        # pooled extraction (reference: the block loop body up to seq
-        # collection runs inside the OMP task, src/smooth.cpp:1904)
-        from ..utils.procpool import chunked, get_pool
-        ver, idx_path = _idx_payload(idx)
-        pool = get_pool(threads)
-        futs = [pool.submit(_extract_chunk, ver, idx_path, seqindex, ch)
-                for ch in chunked(prepped, 4 * threads)]
-        states = [st for f in futs for st in f.result()]
-    else:
-        path_seqs = _path_seqs()
-        states = [_extract_block(idx, path_seqs, block, bid, pad, p)
-                  for bid, block, pad, p in prepped]
-    for st in states:
-        st.abpoa_mode = abpoa_mode
+    with span("smooth.extract"):
+        if threads > 1 and len(prepped) >= 2 * threads:
+            # pooled extraction (reference: the block loop body up to seq
+            # collection runs inside the OMP task, src/smooth.cpp:1904)
+            from ..utils.procpool import chunked, get_pool
+            ver, idx_path = _idx_payload(idx)
+            pool = get_pool(threads)
+            futs = [pool.submit(_extract_chunk, ver, idx_path, seqindex, ch)
+                    for ch in chunked(prepped, 4 * threads)]
+            states = [st for f in futs for st in f.result()]
+        else:
+            path_seqs = _path_seqs()
+            states = [_extract_block(idx, path_seqs, block, bid, pad, p)
+                      for bid, block, pad, p in prepped]
+        for st in states:
+            st.abpoa_mode = abpoa_mode
 
-    max_rounds = max((len(st.useqs) for st in states), default=0)
-    enc: list[list[np.ndarray]] = [
-        [encode_seq(s) for s in st.useqs] for st in states]
+        max_rounds = max((len(st.useqs) for st in states), default=0)
+        enc: list[list[np.ndarray]] = [
+            [encode_seq(s) for s in st.useqs] for st in states]
 
     import time as _time
 
@@ -341,8 +343,9 @@ def smooth_blocks(
             for i, kind, payload in engine.poa_block_batch_iter(inp):
                 if kind == "raw":
                     t = _time.perf_counter()
-                    payload = rehydrate_device_raw(inp[i][0], inp[i][1],
-                                                   payload, validate)
+                    with span("smooth.rehydrate", states[i].block_id):
+                        payload = rehydrate_device_raw(inp[i][0], inp[i][1],
+                                                       payload, validate)
                     t_rehydrate += _time.perf_counter() - t
                 graphs[i] = payload
         else:
@@ -597,11 +600,12 @@ def _finish_blocks(idx, states, consensus_base_name, produce_maf,
                 for chunk in chunked(states, 4 * threads)]
         results = [res for f in futs for res in f.result()]
     else:
-        results = [
-            _finalize_block(idx, st, add_consensus, consensus_base_name,
-                            produce_maf)
-            for st in states
-        ]
+        results = []
+        for st in states:
+            with span("smooth.finalize", st.block_id):
+                results.append(_finalize_block(
+                    idx, st, add_consensus, consensus_base_name,
+                    produce_maf))
     return _finish_tail(states, results, collect_stats, graph_cache,
                         write_poa_blocks_ms, fasta_dir, max_rounds)
 
@@ -691,15 +695,41 @@ def _finalize_block(idx: FlatIndex, st: _BlockState, add_consensus: bool,
     if st.graph is None or st.graph.n_nodes() == 0:
         return BlockResult(bid, None, [], None, None)
     g = st.graph
-    pad = st.padding
 
-    cons_path = g.consensus_path() if add_consensus else []
+    with span("finalize.consensus"):
+        cons_path = g.consensus_path() if add_consensus else []
 
     maf = None
     if produce_maf:
-        maf = _maf_rows(idx, st, g, cons_path, consensus_name)
+        with span("finalize.maf"):
+            maf = _maf_rows(idx, st, g, cons_path, consensus_name)
 
-    # ---- block graph construction ----
+    with span("finalize.build"):
+        bg = _block_graph(st, g, cons_path, consensus_name, add_consensus)
+    with span("finalize.unchop"):
+        bg = bg.unchop_toposort()
+
+    groom_flip = False
+    if st.ranges:
+        target_ri = min(range(len(st.ranges)), key=lambda i: st.ranges[i].pid)
+        tsteps = bg.path_steps[target_ri]
+        groom_flip = bool(tsteps and (tsteps[0] & 1))
+
+    # per-range path mapping (reference: src/smooth.cpp:2256-2269)
+    mappings = []
+    for ri, pr in enumerate(st.ranges):
+        p0 = int(idx.path_pos[pr.pid][pr.begin])
+        p1 = int(idx.path_pos[pr.pid][pr.end])
+        mappings.append((pr.pid, p0, p1, ri + 1))
+    return BlockResult(bid, bg, mappings, consensus_name, maf, groom_flip)
+
+
+def _block_graph(st: _BlockState, g, cons_path, consensus_name,
+                 add_consensus: bool) -> MutableGraph:
+    """The block graph of a POA graph, before its unchop: 1 bp nodes on
+    the path-supported nodes, a path for each original range and the
+    consensus path, edges from the paths."""
+    pad = st.padding
     # trimmed per-sequence node paths (padding removed;
     # reference: src/smooth.cpp:2583, steps[padding:-padding])
     trimmed = [path[pad:len(path) - pad] if pad else list(path)
@@ -742,21 +772,7 @@ def _finalize_block(idx: FlatIndex, st: _BlockState, add_consensus: bool,
         bg.path_steps[pid] = [remap[v] << 1 for v in cons_steps]
 
     bg.create_edges_from_paths()
-    bg = bg.unchop_toposort()
-
-    groom_flip = False
-    if st.ranges:
-        target_ri = min(range(len(st.ranges)), key=lambda i: st.ranges[i].pid)
-        tsteps = bg.path_steps[target_ri]
-        groom_flip = bool(tsteps and (tsteps[0] & 1))
-
-    # per-range path mapping (reference: src/smooth.cpp:2256-2269)
-    mappings = []
-    for ri, pr in enumerate(st.ranges):
-        p0 = int(idx.path_pos[pr.pid][pr.begin])
-        p1 = int(idx.path_pos[pr.pid][pr.end])
-        mappings.append((pr.pid, p0, p1, ri + 1))
-    return BlockResult(bid, bg, mappings, consensus_name, maf, groom_flip)
+    return bg
 
 
 def _flip_block_graph(bg: MutableGraph, consensus_name: str | None) -> MutableGraph:

@@ -3,7 +3,8 @@
 Equivalent to the reference's ProgressMeter (reference: src/progress.hpp:12-84):
 phase start/end banners with elapsed time, plus an optional sampling-thread
 meter printing %/rate/ETA for block-loop phases that complete work
-incrementally (smoothing chunks, break/split).
+incrementally (smoothing chunks, break/split).  Each phase is also a span
+(utils/spans.py), named by `stage_name`.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import sys
 import threading
 import time
 from contextlib import contextmanager
+
+from .spans import span
 
 
 class Log:
@@ -30,12 +33,20 @@ class Log:
               flush=True)
 
 
+def stage_name(msg: str) -> str:
+    """A phase's span name: its message without paths and with each count
+    as N ("smoothing 22 blocks" -> "smoothing N blocks")."""
+    words = [w for w in msg.split() if "/" not in w]
+    return " ".join("N" if w.isdigit() else w for w in words)
+
+
 @contextmanager
 def phase(tag: str, msg: str):
-    t0 = time.time()
-    Log.info(tag, msg)
-    yield
-    Log.info(tag, f"{msg} done in {time.time() - t0:.2f}s")
+    with span(stage_name(msg)):
+        t0 = time.time()
+        Log.info(tag, msg)
+        yield
+        Log.info(tag, f"{msg} done in {time.time() - t0:.2f}s")
 
 
 class ProgressMeter:

@@ -116,7 +116,8 @@ def test_stats_keys_extend_the_pallas_engine():
                             interpret=True)
     eng = TorchPOAEngine(device="cpu")
     assert set(eng.stats()) == set(pal.stats()) | {"kernel_launches",
-                                                   "device_redo"}
+                                                   "device_redo",
+                                                   "copy_bytes"}
 
 
 def test_cuda_engine_refuses_to_run_without_cuda(monkeypatch):

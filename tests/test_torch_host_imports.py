@@ -20,7 +20,7 @@ HOST_MODULES = [
     "pipeline.run", "pipeline.prep", "pipeline.blocks", "pipeline.breaks",
     "pipeline.smooth", "pipeline.lace", "pipeline.merge", "pipeline.maf",
     "pipeline.consensus_graph", "pipeline.poolidx",
-    "utils.procpool",
+    "utils.procpool", "utils.progress", "utils.spans",
     "ops.autocorr", "ops.poa_host", "ops.poa_fused",
 ]
 
