@@ -73,12 +73,8 @@ struct Adj {
     }
 };
 
-} // namespace
-
-extern "C" {
-
-// Perform unchop + toposort + renumber. Returns an opaque result handle.
-void* gc_unchop(
+// unchop + toposort + renumber over flat arrays (gc_unchop's body).
+Result* unchop_core(
     int64_t n_nodes,
     const uint8_t* seq_buf, const int64_t* node_off,
     int64_t n_edges, const int64_t* edge_pairs,
@@ -306,6 +302,141 @@ void* gc_unchop(
     g.steps.resize(new_steps.size());
     for (size_t i = 0; i < new_steps.size(); ++i) g.steps[i] = renum(new_steps[i]);
     return res;
+}
+
+} // namespace
+
+extern "C" {
+
+// Perform unchop + toposort + renumber. Returns an opaque result handle.
+void* gc_unchop(
+    int64_t n_nodes,
+    const uint8_t* seq_buf, const int64_t* node_off,
+    int64_t n_edges, const int64_t* edge_pairs,
+    int64_t n_paths, const int64_t* path_off, const int64_t* steps_in,
+    int do_unchop, int do_toposort)
+{
+    return unchop_core(n_nodes, seq_buf, node_off, n_edges, edge_pairs,
+                       n_paths, path_off, steps_in, do_unchop, do_toposort);
+}
+
+// The block graph of a POA graph, unchopped and toposorted as gc_unchop
+// does, in one call (pipeline/smooth.py:_finalize_block; reference:
+// build_odgi_SPOA / build_odgi_abPOA, src/smooth.cpp:2507-2609).
+//   base[n_poa]                      each POA node's base
+//   seq_off[n_seqs+1], seq_nodes     each unique sequence's POA node path
+//   pad                              steps trimmed from each end of them
+//   range_seq[n_ranges], range_rev   each output path's unique sequence,
+//                                    and whether it runs reversed + flipped
+//   has_cons, cons[n_cons]           a last path on the consensus nodes
+//   abpoa                            the consensus keeps only nodes that
+//                                    the trimmed sequence paths use
+// Nodes are the used POA nodes, 1 bp each, renumbered 1..n in POA id
+// order; edges come from consecutive path steps in the order
+// MutableGraph.create_edges_from_paths + edges_array gives them (by the
+// lower side, then by the smallest (out side, in side) pair that makes
+// the edge), which fixes the order of the edges gc_unchop returns.
+void* gc_block_unchop(
+    int64_t n_poa, const uint8_t* base,
+    int64_t n_seqs, const int64_t* seq_off, const int64_t* seq_nodes,
+    int64_t pad, int64_t n_ranges, const int64_t* range_seq,
+    const uint8_t* range_rev, int has_cons, int64_t n_cons,
+    const int64_t* cons, int abpoa, int do_unchop, int do_toposort)
+{
+    // trimmed sequence paths [ts, te): empty when no longer than 2 * pad
+    vector<int64_t> ts(n_seqs), te(n_seqs);
+    vector<int64_t> newid(n_poa, 0);
+    for (int64_t s = 0; s < n_seqs; ++s) {
+        ts[s] = seq_off[s] + pad;
+        te[s] = std::max(seq_off[s + 1] - pad, ts[s]);
+        for (int64_t i = ts[s]; i < te[s]; ++i) newid[seq_nodes[i]] = 1;
+    }
+    vector<int64_t> cons_steps;
+    if (has_cons) {
+        for (int64_t i = 0; i < n_cons; ++i)
+            if (!abpoa || newid[cons[i]]) cons_steps.push_back(cons[i]);
+        for (int64_t v : cons_steps) newid[v] = 1;
+    }
+    int64_t n = 0;
+    for (int64_t v = 0; v < n_poa; ++v)
+        if (newid[v]) newid[v] = ++n;
+
+    vector<uint8_t> seq(n);
+    vector<int64_t> node_off(n + 1);
+    for (int64_t v = 0; v < n_poa; ++v)
+        if (newid[v]) seq[newid[v] - 1] = base[v];
+    for (int64_t i = 0; i <= n; ++i) node_off[i] = i;
+
+    int64_t n_paths = n_ranges + (has_cons ? 1 : 0);
+    vector<int64_t> path_off(n_paths + 1, 0);
+    vector<int64_t> steps;
+    int64_t n_steps = (int64_t)cons_steps.size();
+    for (int64_t r = 0; r < n_ranges; ++r)
+        n_steps += te[range_seq[r]] - ts[range_seq[r]];
+    steps.reserve(n_steps);
+    for (int64_t r = 0; r < n_ranges; ++r) {
+        int64_t s = range_seq[r];
+        if (range_rev[r]) {
+            for (int64_t i = te[s] - 1; i >= ts[s]; --i)
+                steps.push_back(newid[seq_nodes[i]] << 1 | 1);
+        } else {
+            for (int64_t i = ts[s]; i < te[s]; ++i)
+                steps.push_back(newid[seq_nodes[i]] << 1);
+        }
+        path_off[r + 1] = (int64_t)steps.size();
+    }
+    if (has_cons) {
+        for (int64_t v : cons_steps) steps.push_back(newid[v] << 1);
+        path_off[n_paths] = (int64_t)steps.size();
+    }
+
+    // a step pair (a, b) joins out_side(a) = a ^ 1 to in_side(b) = b;
+    // the distinct (out side, in side) keys, ascending: the pairs bucketed
+    // by out side, each bucket (a node's few neighbours) sorted alone
+    int64_t n_sides = 2 * (n + 1);
+    vector<int64_t> bucket(n_sides + 1, 0);
+    for (int64_t p = 0; p < n_paths; ++p)
+        for (int64_t i = path_off[p] + 1; i < path_off[p + 1]; ++i)
+            ++bucket[(steps[i - 1] ^ 1) + 1];
+    for (int64_t sd = 0; sd < n_sides; ++sd) bucket[sd + 1] += bucket[sd];
+    vector<int64_t> to(bucket[n_sides]);
+    {
+        vector<int64_t> cur(bucket.begin(), bucket.end() - 1);
+        for (int64_t p = 0; p < n_paths; ++p)
+            for (int64_t i = path_off[p] + 1; i < path_off[p + 1]; ++i)
+                to[cur[steps[i - 1] ^ 1]++] = steps[i];
+    }
+    vector<uint64_t> keys;
+    for (int64_t sd = 0; sd < n_sides; ++sd) {
+        auto b = to.begin() + bucket[sd], e = to.begin() + bucket[sd + 1];
+        std::sort(b, e);
+        for (auto it = b; it != e; it = std::upper_bound(it, e, *it))
+            keys.push_back((uint64_t)sd << 32 | (uint64_t)*it);
+    }
+    // (canonical key, smallest directed key): keys ascend, so the first
+    // of each canonical key in a stable sort is its smallest
+    vector<std::pair<uint64_t, uint64_t>> canon(keys.size());
+    for (size_t i = 0; i < keys.size(); ++i) {
+        uint64_t sa = keys[i] >> 32, sb = keys[i] & 0xFFFFFFFFu;
+        canon[i] = {std::min(sa, sb) << 32 | std::max(sa, sb), keys[i]};
+    }
+    std::stable_sort(canon.begin(), canon.end(),
+                     [](const auto& x, const auto& y) { return x.first < y.first; });
+    canon.erase(std::unique(canon.begin(), canon.end(),
+                            [](const auto& x, const auto& y) { return x.first == y.first; }),
+                canon.end());
+    std::sort(canon.begin(), canon.end(), [](const auto& x, const auto& y) {
+        uint64_t lx = x.first >> 32, ly = y.first >> 32;
+        return lx != ly ? lx < ly : x.second < y.second;
+    });
+    vector<int64_t> edges(2 * canon.size());
+    for (size_t i = 0; i < canon.size(); ++i) {
+        edges[2 * i] = (int64_t)(canon[i].first >> 32) ^ 1;
+        edges[2 * i + 1] = (int64_t)(canon[i].first & 0xFFFFFFFFu);
+    }
+    return unchop_core(n, seq.data(), node_off.data(),
+                       (int64_t)canon.size(), edges.data(), n_paths,
+                       path_off.data(), steps.data(), do_unchop, do_toposort);
 }
 
 int64_t gc_n_nodes(void* r) { return ((Result*)r)->g.n; }

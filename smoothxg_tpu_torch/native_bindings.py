@@ -35,6 +35,10 @@ def load() -> ctypes.CDLL | None:
     lib.gc_unchop.restype = ctypes.c_void_p
     lib.gc_unchop.argtypes = [i64, pu8, p64, i64, p64, i64, p64, p64,
                               ctypes.c_int, ctypes.c_int]
+    lib.gc_block_unchop.restype = ctypes.c_void_p
+    lib.gc_block_unchop.argtypes = [i64, pu8, i64, p64, p64, i64, i64, p64,
+                                    pu8, ctypes.c_int, i64, p64,
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_int]
     for f in ("gc_n_nodes", "gc_seq_len", "gc_n_edges", "gc_n_steps"):
         getattr(lib, f).restype = i64
         getattr(lib, f).argtypes = [ctypes.c_void_p]
@@ -102,11 +106,37 @@ def unchop_arrays(seq_buf: np.ndarray, node_off: np.ndarray,
     lib = load()
     if lib is None:
         return None
-    n = len(node_off) - 1
     n_paths = len(path_off) - 1
-    r = lib.gc_unchop(n, seq_buf, node_off, len(edges) // 2,
+    r = lib.gc_unchop(len(node_off) - 1, seq_buf, node_off, len(edges) // 2,
                       edges.reshape(-1), n_paths, path_off, steps,
                       int(do_unchop), int(do_toposort))
+    return _take(lib, r, n_paths)
+
+
+def block_unchop(base: np.ndarray, seq_off: np.ndarray,
+                 seq_nodes: np.ndarray, pad: int, range_seq: np.ndarray,
+                 range_rev: np.ndarray, cons: np.ndarray, has_cons: bool,
+                 abpoa: bool, do_unchop: bool = True,
+                 do_toposort: bool = True):
+    """The block graph of a POA graph, unchopped and toposorted, in one
+    native call (graphcore.cpp gc_block_unchop: the arguments are
+    documented there); the same array tuple as unchop_arrays.  With both
+    flags off it is the block graph before its unchop.  Returns None when
+    the native library is unavailable."""
+    lib = load()
+    if lib is None:
+        return None
+    n_paths = len(range_seq) + int(has_cons)
+    r = lib.gc_block_unchop(len(base), base, len(seq_off) - 1, seq_off,
+                            seq_nodes, int(pad), len(range_seq), range_seq,
+                            range_rev, int(has_cons), len(cons), cons,
+                            int(abpoa), int(do_unchop), int(do_toposort))
+    return _take(lib, r, n_paths)
+
+
+def _take(lib, r, n_paths: int):
+    """Copy a gc_* result handle out as (seq_buf, node_off, edges,
+    path_off, steps) and free it."""
     try:
         n2 = lib.gc_n_nodes(r)
         sl = lib.gc_seq_len(r)

@@ -314,7 +314,9 @@ def rehydrate(base: np.ndarray, ring: np.ndarray, order: list[int],
 
     The final graph is fully determined by (base, rings, topo order, paths):
     every edge was created by threading, so edges/weights accumulate from
-    consecutive path entries; aligned groups are the ring cycles.
+    consecutive path entries; aligned groups are the ring cycles.  `paths`
+    may be lists or arrays; the graph keeps them as lists (`seq_paths`)
+    and as one array (`flat_paths`).
     """
     V = len(base)
     g = POAGraph()
@@ -348,9 +350,9 @@ def rehydrate(base: np.ndarray, ring: np.ndarray, order: list[int],
 
     # edges: consecutive path entries, weights summed per distinct (u, v);
     # succ/pred slot order preserved as first-seen across paths in order
+    arrs = [np.asarray(p, dtype=np.int64) for p in paths]
     if V and paths:
-        pw = [(np.asarray(p, dtype=np.int64), w)
-              for p, w in zip(paths, weights) if len(p) > 1]
+        pw = [(p, w) for p, w in zip(arrs, weights) if len(p) > 1]
         if pw:
             us = np.concatenate([p[:-1] for p, _ in pw])
             vs = np.concatenate([p[1:] for p, _ in pw])
@@ -369,7 +371,11 @@ def rehydrate(base: np.ndarray, ring: np.ndarray, order: list[int],
                 edge_w[(u, v)] = w
                 succs[u].append(v)
                 preds[v].append(u)
-    g.seq_paths = [np.asarray(p, dtype=np.int64).tolist() for p in paths]
+    g.seq_paths = [p.tolist() for p in arrs]
+    off = np.zeros(len(arrs) + 1, dtype=np.int64)
+    off[1:] = np.cumsum([len(p) for p in arrs])
+    g.flat_paths = (off, np.concatenate(arrs) if arrs
+                    else np.zeros(0, dtype=np.int64))
     g.seq_weights = list(weights)
     g._topo = list(order)
     return g

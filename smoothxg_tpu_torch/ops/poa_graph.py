@@ -23,6 +23,10 @@ class POAGraph:
     # graph (0 for the spoa-faithful add_alignment path below; see
     # ops/poa_fused.py docstring and PARITY.md)
     guard_splits = 0
+    # seq_paths as one array: (offsets int64[n + 1], node ids int64), set
+    # by ops/poa_fused.rehydrate for pipeline/smooth.py's block graph;
+    # None where the paths were grown here, or have grown since
+    flat_paths = None
 
     def __init__(self) -> None:
         self.base: list[int] = []           # byte code per node
@@ -88,6 +92,7 @@ class POAGraph:
     def add_sequence(self, seq: np.ndarray, weight: int) -> None:
         """Add the first (or an unaligned) sequence as a fresh chain
         (batched appends — this is a hot path for block seeding)."""
+        self.flat_paths = None
         L = len(seq)
         if L == 0:
             self.seq_paths.append([])
@@ -114,6 +119,7 @@ class POAGraph:
         (node_id | None, seq_pos | None) pairs covering a (possibly partial)
         span of seq positions in increasing order.  Unaligned prefix/suffix
         positions get fresh nodes, mirroring spoa::Graph::AddAlignment."""
+        self.flat_paths = None
         L = len(seq)
         target: dict[int, int | None] = {}   # seq_pos -> node id or None
         for node, pos in aln:

@@ -120,7 +120,7 @@ def _pool_block(args):
     so: dict = {}
     base, ring, order, flat, off = poa_block(list(seqs), params, ring_cap,
                                              stats_out=so)
-    paths = [flat[off[i]:off[i + 1]].tolist() for i in range(len(seqs))]
+    paths = [flat[off[i]:off[i + 1]] for i in range(len(seqs))]
     g = rehydrate(base, ring, [int(v) for v in order], paths,
                   list(weights))
     g.guard_splits = so.get("guard_splits", 0)
@@ -171,8 +171,7 @@ class NativePOAEngine:
             so: dict = {}
             r = poa_block(list(seqs), params, self.ring_cap, stats_out=so)
             base, ring, order, flat, off = r
-            paths = [flat[off[i]:off[i + 1]].tolist()
-                     for i in range(len(seqs))]
+            paths = [flat[off[i]:off[i + 1]] for i in range(len(seqs))]
             g = rehydrate(base, ring, [int(v) for v in order],
                           paths, list(weights))
             g.guard_splits = so.get("guard_splits", 0)

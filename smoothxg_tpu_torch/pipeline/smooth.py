@@ -21,9 +21,11 @@ Per block (reference semantics):
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from itertools import chain
 
 import numpy as np
 
+from .. import native_bindings
 from ..graph.index import FlatIndex
 from ..graph.mutable import MutableGraph, flip
 from ..ops import poa_host
@@ -64,6 +66,10 @@ class BlockResult:
     # (reference memory policy: zstd block graphs + sampled hot subset,
     # src/utils.cpp:89-99, src/main.cpp:616-651) and `graph` is None
     cache: object | None = None
+    # how _finalize_block built the block graph: "flat" (one native
+    # gc_block_unchop call), "fallback" (numpy and the Python unchop,
+    # without the native library), None for a block without a graph
+    route: str | None = None
 
     def get_graph(self) -> MutableGraph | None:
         if self.cache is not None:
@@ -361,7 +367,7 @@ def smooth_blocks(
         Log.info("smooth", f"{len(states)} blocks: engine "
                  f"{t1 - t0 - t_rehydrate:.2f}s, rehydrate "
                  f"{t_rehydrate:.2f}s, finalize "
-                 f"{_time.perf_counter() - t1:.2f}s")
+                 f"{_time.perf_counter() - t1:.2f}s, {_flat_count(res)}")
         return res
 
     # round-synchronized POA: round 0 seeds the graph, round r aligns the
@@ -485,7 +491,7 @@ def _native_full_chunk(idx_ver: int, idx_path: str, seqindex, items: list,
         so: dict = {}
         base, ring, order, flat, off = poa_block(es, st.params, ring_cap,
                                                  stats_out=so)
-        paths = [flat[off[i]:off[i + 1]].tolist() for i in range(len(es))]
+        paths = [flat[off[i]:off[i + 1]] for i in range(len(es))]
         st.graph = rehydrate(base, ring, [int(v) for v in order], paths,
                              list(st.weights))
         st.graph.guard_splits = so.get("guard_splits", 0)
@@ -581,9 +587,17 @@ def _smooth_fused_pipelined(idx, engine, states, enc, consensus_base_name,
     for st in states:
         st.poa_ms = ms_each
     Log.info("smooth", f"{len(states)} blocks: engine {t_iter:.2f}s, "
-             f"rehydrate {t_rehydrate:.2f}s, finalize {t_finalize:.2f}s "
-             f"(rehydrate and finalize summed over {threads} workers)")
+             f"rehydrate {t_rehydrate:.2f}s, finalize {t_finalize:.2f}s, "
+             f"{_flat_count(results)} (rehydrate and finalize summed over "
+             f"{threads} workers)")
     return results
+
+
+def _flat_count(results) -> str:
+    """`flat N/M`: N of the M blocks built their block graph on the flat
+    native route (BlockResult.route)."""
+    n = sum(1 for r in results if r.route == "flat")
+    return f"flat {n}/{len(results)}"
 
 
 def _finish_blocks(idx, states, consensus_base_name, produce_maf,
@@ -704,10 +718,18 @@ def _finalize_block(idx: FlatIndex, st: _BlockState, add_consensus: bool,
         with span("finalize.maf"):
             maf = _maf_rows(idx, st, g, cons_path, consensus_name)
 
+    names = st.names_in_order + ([consensus_name] if add_consensus else [])
     with span("finalize.build"):
-        bg = _block_graph(st, g, cons_path, consensus_name, add_consensus)
-    with span("finalize.unchop"):
-        bg = bg.unchop_toposort()
+        args = _block_args(st, g, cons_path, add_consensus)
+        route = "flat" if native_bindings.load() is not None else "fallback"
+        if route == "fallback":
+            arrays = _block_arrays(*args)
+    with span("finalize.unchop", route):
+        if route == "flat":
+            bg = MutableGraph.from_arrays(
+                *native_bindings.block_unchop(*args), names)
+        else:
+            bg = MutableGraph.from_arrays(*arrays, names).unchop_toposort()
 
     groom_flip = False
     if st.ranges:
@@ -721,58 +743,91 @@ def _finalize_block(idx: FlatIndex, st: _BlockState, add_consensus: bool,
         p0 = int(idx.path_pos[pr.pid][pr.begin])
         p1 = int(idx.path_pos[pr.pid][pr.end])
         mappings.append((pr.pid, p0, p1, ri + 1))
-    return BlockResult(bid, bg, mappings, consensus_name, maf, groom_flip)
+    return BlockResult(bid, bg, mappings, consensus_name, maf, groom_flip,
+                       route=route)
 
 
-def _block_graph(st: _BlockState, g, cons_path, consensus_name,
-                 add_consensus: bool) -> MutableGraph:
-    """The block graph of a POA graph, before its unchop: 1 bp nodes on
-    the path-supported nodes, a path for each original range and the
-    consensus path, edges from the paths."""
-    pad = st.padding
-    # trimmed per-sequence node paths (padding removed;
-    # reference: src/smooth.cpp:2583, steps[padding:-padding])
-    trimmed = [path[pad:len(path) - pad] if pad else list(path)
-               for path in g.seq_paths]
-
-    kept: set[int] = set()
-    for tp in trimmed:
-        kept.update(tp)
-    if st.abpoa_mode:
-        # abPOA mode keeps only consensus steps on read-supported handles
-        # (reference: build_odgi_abPOA, src/smooth.cpp:2507-2523)
-        cons_steps = [v for v in cons_path if v in kept]
+def _block_args(st: _BlockState, g, cons_path, add_consensus: bool) -> tuple:
+    """The arguments of native_bindings.block_unchop and _block_arrays for
+    a block's POA graph: its bases, its sequence paths as one array, the
+    padding, each original range's unique sequence and strand, and the
+    consensus path."""
+    if g.flat_paths is not None:
+        seq_off, seq_nodes = g.flat_paths
     else:
-        # spoa-mode consensus keeps its full node set (incl. pad overlap),
-        # reference: build_odgi_SPOA include_consensus, src/smooth.cpp:2596-2609
-        cons_steps = list(cons_path)
-        kept.update(cons_steps)
-
-    bg = MutableGraph()
-    remap: dict[int, int] = {}
-    for v in sorted(kept):
-        remap[v] = bg.create_handle(chr(g.base[v])) >> 1
-
-    # paths in original block order (reference: src/smooth.cpp:980-994)
-    # each original range becomes one path; duplicates reuse their unique
-    # sequence's node path, reversed+flipped when strand-normalized
-    range_paths: list[list[int]] = [None] * len(st.ranges)
+        seq_off = np.zeros(len(g.seq_paths) + 1, dtype=np.int64)
+        seq_off[1:] = np.cumsum([len(p) for p in g.seq_paths])
+        seq_nodes = np.fromiter(chain.from_iterable(g.seq_paths), np.int64,
+                                count=int(seq_off[-1]))
+    n = len(st.names_in_order)
+    range_seq = np.zeros(n, dtype=np.int64)
+    range_rev = np.zeros(n, dtype=np.uint8)
     for urank, idxs in enumerate(st.dup_range_idx):
-        for occ, ri in enumerate(idxs):
-            is_rev = st.dup_is_rev[urank][occ]
-            steps = [remap[v] << 1 for v in trimmed[urank]]
-            if is_rev:
-                steps = [h ^ 1 for h in reversed(steps)]
-            range_paths[ri] = steps
-    for ri, name in enumerate(st.names_in_order):
-        pid = bg.create_path(name)
-        bg.path_steps[pid] = range_paths[ri]
-    if add_consensus:
-        pid = bg.create_path(consensus_name)
-        bg.path_steps[pid] = [remap[v] << 1 for v in cons_steps]
+        range_seq[idxs] = urank
+        range_rev[idxs] = st.dup_is_rev[urank]
+    return (np.asarray(g.base, dtype=np.uint8), seq_off, seq_nodes,
+            st.padding, range_seq, range_rev,
+            np.asarray(cons_path, dtype=np.int64), add_consensus,
+            st.abpoa_mode)
 
-    bg.create_edges_from_paths()
-    return bg
+
+def _block_arrays(base, seq_off, seq_nodes, pad, range_seq, range_rev, cons,
+                  has_cons, abpoa) -> tuple:
+    """The block graph of a POA graph, before its unchop, as the flat
+    arrays of MutableGraph.to_arrays: what graphcore.cpp's gc_block_unchop
+    builds before it unchops, for the route without the native library
+    (reference: build_odgi_SPOA / build_odgi_abPOA, src/smooth.cpp:
+    2507-2609).  1 bp nodes on the used POA nodes in POA id order, a path
+    for each original range and then the consensus, edges from the paths
+    in the order create_edges_from_paths + edges_array gives them."""
+    # trimmed sequence paths (reference: src/smooth.cpp:2583,
+    # steps[padding:-padding]); empty when no longer than 2 * pad
+    ts = seq_off[:-1] + pad
+    tlen = np.maximum(seq_off[1:] - pad, ts) - ts
+    toff = np.zeros(len(tlen) + 1, dtype=np.int64)
+    toff[1:] = np.cumsum(tlen)
+    trimmed = seq_nodes[np.repeat(ts - toff[:-1], tlen)
+                        + np.arange(toff[-1])]
+    kept = np.zeros(len(base), dtype=bool)
+    kept[trimmed] = True
+    if not has_cons:
+        cons = cons[:0]
+    elif abpoa:
+        # abPOA keeps only consensus steps on read-supported nodes
+        # (reference: build_odgi_abPOA, src/smooth.cpp:2507-2523)
+        cons = cons[kept[cons]]
+    else:
+        # the spoa consensus keeps its full node set, pad overlap included
+        # (reference: build_odgi_SPOA include_consensus, :2596-2609)
+        kept[cons] = True
+    newid = np.cumsum(kept)
+    n = int(newid[-1]) if len(newid) else 0
+
+    # each original range's path, in block order (reference: :980-994):
+    # its unique sequence's, reversed and flipped when strand-normalized
+    rlen = tlen[range_seq]
+    roff = np.zeros(len(rlen) + 1, dtype=np.int64)
+    roff[1:] = np.cumsum(rlen)
+    j = np.arange(roff[-1]) - np.repeat(roff[:-1], rlen)
+    rev = np.repeat(range_rev.astype(np.int64), rlen)
+    pos = np.repeat(toff[range_seq], rlen) + np.where(
+        rev == 1, np.repeat(rlen, rlen) - 1 - j, j)
+    steps = np.concatenate([newid[trimmed[pos]] << 1 | rev, newid[cons] << 1])
+    path_off = np.concatenate([roff, [len(steps)]] if has_cons else [roff])
+
+    # a step pair (a, b) joins out_side(a) = a ^ 1 to in_side(b) = b; an
+    # edge comes by its lower side, then its smallest directed key
+    inner = np.ones(max(len(steps) - 1, 0), dtype=bool)
+    starts = path_off[1:-1]
+    inner[starts[(starts > 0) & (starts < len(steps))] - 1] = False
+    key = np.unique(((steps[:-1] ^ 1) << 32 | steps[1:])[inner])
+    sa, sb = key >> 32, key & 0xFFFFFFFF
+    lo, hi = np.minimum(sa, sb), np.maximum(sa, sb)
+    _, first = np.unique(lo << 32 | hi, return_index=True)
+    first = first[np.lexsort((first, lo[first]))]
+    edges = np.stack([lo[first] ^ 1, hi[first]], axis=1).ravel()
+    return (base[kept], np.arange(n + 1, dtype=np.int64), edges, path_off,
+            steps)
 
 
 def _flip_block_graph(bg: MutableGraph, consensus_name: str | None) -> MutableGraph:

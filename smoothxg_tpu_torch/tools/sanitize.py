@@ -49,8 +49,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO = os.path.dirname(_PKG)
 # the port's tests of the host stages: the pipeline end to end (cpoa,
 # graphcore, sgd's native prep, and wfa through the divergent fixture's
-# split stage) and the SGD layout's native route
+# split stage), graphcore's block-graph entry on its edge cases and the SGD
+# layout's native route
 HOST_TESTS = ["tests/test_torch_pipeline.py",
+              "tests/test_torch_finalize_flat.py",
               "tests/test_torch_sgd.py::test_batched_routes_match_native_quality",
               "tests/test_torch_sgd.py::test_auto_routes_by_term_updates"]
 # the emulation tests of the ten kernel sources
